@@ -1,0 +1,287 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (`depth_estimation_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's flagship stereo inference, `crf_stereo_infer` on a
+288×384 pair with 16 labels, a 5-D bilateral guide and 5 mean-field
+iterations, through both lattice plan paths:
+
+  A. the bench configuration: calibrated capacity, 32-px tiles with bf16
+     incidence blocks, bf16 mean-field state and the fused update, on a
+     synthetic pair at contrast 0.5, whose calibration pins 'packed1' and so
+     takes the lean per-tile plan;
+  B. the same pair at full contrast, whose calibration keeps 'auto' and so
+     takes the general plan with tiled tables, in float32 with the fused
+     update.
+
+It builds the CUDA kernels from `depth_estimation_torch/csrc` (one `nvcc`
+per source, all at once), holds each kernel against its plain PyTorch
+version on the card and times both, counts the kernel's launches in each
+pipeline run, and checks each pipeline's disparity against the same
+pipeline without the kernel on the card and against the port's own CPU run
+(the path the CPU tests hold against the JAX package). Any failed check
+raises. The last lines are the card's name and power limit, one JSON object
+of kernel numbers, and `{"ok": true, "device": {...}}`. Without a GPU, or
+without the package beside it, the script fails before printing a result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+H, W, LABELS, NITERS, TILE_PX = 288, 384, 16, 5, 32
+DEV = "cuda"
+# published peaks of one H100 SXM: memory bytes/s, float32 (non-tensor-core) FLOP/s
+PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+DISP_ATOL = 5e-3  # px: the tolerance of the JAX package's fused-update test
+BF16_MEAN_TOL = 0.1  # px: mean |Δdisparity| where the two sides round in bf16
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(ok: bool, what) -> None:
+    """A failed check raises (and, unlike `assert`, also under `python -O`)."""
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
+    """Median device time of `fn` over `reps` runs, by CUDA events. With
+    `flush`, a buffer larger than the L2 cache is rewritten before each run,
+    so every run finds its inputs in device memory, not in L2."""
+    pairs = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+# ---------------------------------------------------------------------------
+# the fused mean-field update against its plain version
+# ---------------------------------------------------------------------------
+
+
+def kernel_inputs(n: int, L: int, dtype, seed: int = 0):
+    rs = np.random.RandomState(seed)
+    arrays = (rs.rand(n, L) * 10, rs.randn(n, L), rs.rand(n, L), rs.rand(L, L))
+    return [torch.from_numpy(a.astype(np.float32)).to(DEV, dtype) for a in arrays]
+
+
+def check_fused_update(K, n: int, L: int, dtype) -> float:
+    """Kernel against plain version; returns the largest |difference|."""
+    args = kernel_inputs(n, L, dtype)
+    E_k, C_k = K.fused_energy_update(*args)
+    torch.cuda.synchronize()
+    E_r, C_r = K.fused_energy_update_reference(*args)
+    if dtype == torch.float32:
+        torch.testing.assert_close(E_k, E_r, **F32_TOL)
+        torch.testing.assert_close(C_k, C_r, **F32_TOL)
+    else:
+        e_r = E_r.float()
+        ulp = torch.exp2(torch.floor(torch.log2(e_r.abs().clamp_min(1e-30))) - 7)
+        bad = int(((E_k.float() - e_r).abs() > ulp).sum())
+        check(bad == 0, f"{bad} values of E differ by more than one bf16 ulp")
+        torch.testing.assert_close(C_k.float(), C_r.float(), rtol=0, atol=1e-2)
+    err = max(float((E_k.float() - E_r.float()).abs().max()),
+              float((C_k.float() - C_r.float()).abs().max()))
+    log(f"  fused_energy_update n={n} L={L} {str(dtype)[6:]}: max |kernel - plain| = {err:.3g}")
+    return err
+
+
+def time_fused_update(K, n: int, L: int, dtype) -> dict:
+    args = kernel_inputs(n, L, dtype, seed=1)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEV)
+    for _ in range(3):
+        K.fused_energy_update(*args)
+        K.fused_energy_update_reference(*args)
+    ms = median_ms(lambda: K.fused_energy_update(*args), 100, flush)
+    plain_ms = median_ms(lambda: K.fused_energy_update_reference(*args), 50, flush)
+    elt = args[0].element_size()
+    nbytes = (5 * n * L + L * L) * elt  # E0, S, C, Mu read once; E, C' written once
+    flops = n * (2 * L * L + 6 * L)  # E: 2L, max/exp/sum/divide: 4L, q·Mu: 2L²
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
+    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    log(f"  time n={n} L={L} {str(dtype)[6:]}: kernel {ms * 1e3:.2f} us, plain "
+        f"{plain_ms * 1e3:.2f} us, bound {out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}: "
+        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the pipelines
+# ---------------------------------------------------------------------------
+
+
+def synthetic_pair(contrast: float):
+    from depth_estimation_torch.data.synthetic import make_stereo_pair
+
+    left, right, gt = make_stereo_pair(np.random.RandomState(0), H, W)
+    lo = 0.5 - contrast / 2
+    return ((lo + contrast * left).astype(np.float32), (lo + contrast * right).astype(np.float32),
+            gt.astype(np.float32))
+
+
+def run_pipeline(tag: str, contrast: float, overrides: dict, want_sort_mode: str, f32: bool) -> dict:
+    from depth_estimation_torch.models.pipeline import (CRFStereoConfig, calibrate_capacity,
+                                                        crf_stereo_infer)
+    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
+    from depth_estimation_torch.train.metrics import bad_pixel_ratio, epe
+
+    left, right, gt = synthetic_pair(contrast)
+    t0 = time.perf_counter()
+    cfg = calibrate_capacity(left, CRFStereoConfig(num_disp=LABELS, niters=NITERS),
+                             tiled=True, tile_px=TILE_PX, device=DEV)
+    log(f"pipeline {tag}: calibrated in {time.perf_counter() - t0:.2f} s: max_vertices="
+        f"{cfg.max_vertices} sort_mode={cfg.sort_mode} tile_px={cfg.tile_px} tile_u={cfg.tile_u}")
+    check(cfg.sort_mode == want_sort_mode and cfg.tile_px == TILE_PX, cfg)
+    cfg = replace(cfg, fused_update=True, **overrides)
+
+    # the main path: launch counts read from zero just around one run
+    fused_energy_update.launches = 0
+    out = crf_stereo_infer(left, right, cfg, device=DEV)
+    torch.cuda.synchronize()
+    launches = fused_energy_update.launches
+    log(f"pipeline {tag}: fused_energy_update launches in one run = {launches}")
+    check(launches == NITERS, f"{launches} launches, want {NITERS}")
+
+    plan = out["plans"][0]
+    lean = plan.slot is None
+    num_valid, overflow = int(plan.num_valid), int(plan.tile_overflow)
+    log(f"pipeline {tag}: plan {'lean per-tile' if lean else 'general + tiled tables'}, "
+        f"num_valid={num_valid} of {cfg.max_vertices}, tile_overflow={overflow}, "
+        f"incidence {tuple(plan.tile_A.shape)} {str(plan.tile_A.dtype)[6:]}")
+    check(lean == (want_sort_mode == "packed1") and plan.tile_A is not None, "plan path")
+    check(overflow == 0 and num_valid <= cfg.max_vertices, "capacity overflow")
+    disp = out["disparity"]
+    check(disp.shape == (H, W) and disp.device.type == DEV, "disparity shape or device")
+    check(bool(torch.isfinite(disp).all()), "non-finite disparity")
+
+    def compare(what: str, other: torch.Tensor, exact: bool):
+        diff = (disp.float().cpu() - other.float().cpu()).abs()
+        log(f"pipeline {tag}: |disparity - {what}| max {float(diff.max()):.3g} px, "
+            f"mean {float(diff.mean()):.3g} px")
+        if exact:
+            check(float(diff.max()) <= DISP_ATOL, f"max over {DISP_ATOL} px against {what}")
+        else:
+            check(float(diff.mean()) <= BF16_MEAN_TOL, f"mean over {BF16_MEAN_TOL} px against {what}")
+
+    unfused = crf_stereo_infer(left, right, replace(cfg, fused_update=False), device=DEV)["disparity"]
+    compare("same pipeline without the kernel, on the card", unfused, f32)
+    on_cpu = crf_stereo_infer(left, right, cfg, device="cpu")["disparity"]
+    compare("the port's CPU run", on_cpu, f32)
+
+    g = torch.as_tensor(gt, device=DEV)
+    mask = (g > 0).float()
+    for name, d in (("unary", out["disparity_unary"]), ("CRF", disp)):
+        log(f"pipeline {tag}: {name} EPE {float(epe(d, g, mask)):.4f} px, "
+            f"bad-2 {float(bad_pixel_ratio(d, g, 2.0, mask)):.4f}")
+
+    crf_stereo_infer(left, right, cfg, device=DEV)  # warm-up
+    ms = median_ms(lambda: crf_stereo_infer(left, right, cfg, device=DEV), 10)
+    log(f"pipeline {tag}: warm pipeline {ms:.3f} ms (median of 10, CUDA events)")
+    busy_ms = profile(tag, lambda: crf_stereo_infer(left, right, cfg, device=DEV))
+    return {"launches": launches, "ms": ms, "device_busy_ms": busy_ms, "lean": lean,
+            "sort_mode": cfg.sort_mode, "max_vertices": cfg.max_vertices,
+            "tile_u": cfg.tile_u, "num_valid": num_valid}
+
+
+def profile(tag: str, fn, top: int = 8):
+    """One warm run under torch.profiler: device busy time against the
+    run's wall time, and the kernels that take the most device time.
+    Returns the busy ms, or None where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(r[0] for r in rows)
+    if busy_ms == 0:
+        log(f"pipeline {tag}: profiler saw no device time: busy share not measured")
+        return None
+    log(f"pipeline {tag}: profiled run {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), {sum(r[1] for r in rows)} device ops; top by device time:")
+    for t, count, key in sorted(rows, reverse=True)[:top]:
+        log(f"    {t:8.3f} ms {count:4d}x  {key[:90]}")
+    return busy_ms
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from depth_estimation_torch.ops.cuda import meanfield as K
+    from depth_estimation_torch.utils.build import build_all
+
+    # plain versions on the card compute float32 products in float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    libs = build_all()
+    log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+
+    log("fused_energy_update against its plain version:")
+    n = H * W
+    errs = {}
+    for rows, L in ((n, LABELS), (n - 7, LABELS), (n, 8)):
+        for dtype in (torch.float32, torch.bfloat16):
+            errs[rows, L, dtype] = check_fused_update(K, rows, L, dtype)
+    t_bf16 = time_fused_update(K, n, LABELS, torch.bfloat16)
+    t_f32 = time_fused_update(K, n, LABELS, torch.float32)
+
+    a = run_pipeline("A (bench configuration, lean plan, bf16)", 0.5,
+                     dict(tile_bf16=True, compute_dtype="bf16"), "packed1", f32=False)
+    b = run_pipeline("B (general tiled plan, f32)", 1.0, {}, "auto", f32=True)
+    log(json.dumps({"pipelines": {"A": a, "B": b}}))
+
+    kernel = {
+        "name": "fused_energy_update", "route": "cuda",
+        "source": "depth_estimation_torch/csrc/meanfield.cu",
+        "replaces": "depth_estimation_tpu/ops/pallas/meanfield.py:55",
+        "launches": a["launches"], "max_abs_err": errs[n, LABELS, torch.bfloat16],
+        **t_bf16, "library_ms": None,
+        "us": t_bf16["ms"] * 1e3, "bound_us": t_bf16["bound_ms"] * 1e3,
+        "shape": [n, LABELS], "dtype": "bf16", "launches_b": b["launches"],
+        "max_abs_err_f32": errs[n, LABELS, torch.float32],
+        "f32": t_f32,
+    }
+    log(card_line())
+    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

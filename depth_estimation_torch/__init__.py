@@ -1,0 +1,15 @@
+"""depth_estimation_torch — dense CRF stereo on PyTorch and CUDA (Hopper).
+
+The PyTorch counterpart of the JAX package beside it, module for module:
+cost volumes (`ops.costvolume`), the permutohedral lattice
+(`ops.permutohedral`), the dense Gaussian oracle (`ops.dense_gaussian`),
+mean-field CRF inference (`crf`), the flagship stereo pipeline
+(`models.pipeline`) and its CLI (`apps.infer`). The fused mean-field
+update is a hand-written CUDA kernel (`csrc/meanfield.cu`, bound in
+`ops.cuda.meanfield`); everything else is PyTorch tensor code.
+
+Entry points run on the GPU (`device=None` means "cuda") and raise when
+no GPU is present; pass `device="cpu"` to run the plain PyTorch versions.
+"""
+
+__version__ = "0.1.0"
