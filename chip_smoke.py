@@ -16,8 +16,10 @@ iterations, through both lattice plan paths:
      update.
 
 It builds the CUDA kernels from `depth_estimation_torch/csrc` (one `nvcc`
-per source, all at once), holds each kernel against its plain PyTorch
-version on the card and times both, counts the kernel's launches in each
+per source, all at once), prints what `ptxas` reports for every kernel
+instantiation (registers, shared memory, spills; more than 128 registers or
+any spill fails), holds each kernel against its plain PyTorch version on
+the card and times both, counts the kernel's launches in each
 pipeline run, and checks each pipeline's disparity against the same
 pipeline without the kernel on the card and against the port's own CPU run
 (the path the CPU tests hold against the JAX package). Any failed check
@@ -28,6 +30,7 @@ without the package beside it, the script fails before printing a result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -42,6 +45,7 @@ DEV = "cuda"
 # published peaks of one H100 SXM: memory bytes/s, float32 (non-tensor-core) FLOP/s
 PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
+MAX_REGISTERS = 128  # 4 blocks of 128 threads per SM: __launch_bounds__(128, 4)
 DISP_ATOL = 5e-3  # px: the tolerance of the JAX package's fused-update test
 BF16_MEAN_TOL = 0.1  # px: mean |Δdisparity| where the two sides round in bf16
 
@@ -82,6 +86,43 @@ def median_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
 # ---------------------------------------------------------------------------
 # the fused mean-field update against its plain version
 # ---------------------------------------------------------------------------
+
+
+def ptxas_report(K) -> list[dict]:
+    """Registers, static shared memory and spills of every instantiation of
+    the fused update, from the build's `ptxas -v` log, with the dynamic
+    shared memory of its launch at the flagship row count."""
+    from depth_estimation_torch.utils.build import build_log
+
+    found, cur = {}, None
+    for line in build_log("meanfield").splitlines():
+        # the mangled name of an instantiation opens its lines: <L, float or bfloat16>
+        k = re.search(r"fused_energy_update_kernelILi(\d+)E(f|13__nv_bfloat16)E", line)
+        if k:
+            cur = found.setdefault((int(k.group(1)), "f32" if k.group(2) == "f" else "bf16"), {})
+        elif cur is not None and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            cur.update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(smem.group(1)) if smem else 0
+    rows = []
+    for L in K.SUPPORTED_L:
+        for dt, elt in (("f32", 4), ("bf16", 2)):
+            r = found.get((L, dt))
+            check(r is not None and "registers" in r and "spill_stores" in r,
+                  f"ptxas reported nothing for L={L} {dt}")
+            r = dict(L=L, dtype=dt, **r,
+                     dynamic_smem=K.launch_geometry(H * W, L, elt).smem_bytes)
+            log(f"  ptxas fused_energy_update L={L} {dt}: {r['registers']} registers, "
+                f"{r['static_smem']} B static + {r['dynamic_smem']} B dynamic shared memory, "
+                f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads, "
+                f"{r['stack']} B stack")
+            rows.append(r)
+    check(all(r["registers"] <= MAX_REGISTERS for r in rows), f"over {MAX_REGISTERS} registers")
+    check(all(r["spill_stores"] == r["spill_loads"] == 0 for r in rows), "register spills")
+    return rows
 
 
 def kernel_inputs(n: int, L: int, dtype, seed: int = 0):
@@ -128,6 +169,23 @@ def time_fused_update(K, n: int, L: int, dtype) -> dict:
     log(f"  time n={n} L={L} {str(dtype)[6:]}: kernel {ms * 1e3:.2f} us, plain "
         f"{plain_ms * 1e3:.2f} us, bound {out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}: "
         f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    return out
+
+
+def time_yardsticks(K, n: int, L: int, dtype) -> dict:
+    """What the L2 flush costs any kernel, timed as K1 is: K1 on one row (a
+    launch that moves almost nothing) and PyTorch's copy of one (n, L) array
+    into another (2 of K1's 5 passes)."""
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEV)
+    one_row = kernel_inputs(1, L, dtype)
+    src, dst = kernel_inputs(n, L, dtype)[:2]
+    for _ in range(3):
+        K.fused_energy_update(*one_row)
+        dst.copy_(src)
+    out = {"one_row_ms": median_ms(lambda: K.fused_energy_update(*one_row), 100, flush),
+           "copy_ms": median_ms(lambda: dst.copy_(src), 100, flush)}
+    log(f"  yardsticks {str(dtype)[6:]}: K1 on one row {out['one_row_ms'] * 1e3:.2f} us, "
+        f"copy_ of one ({n}, {L}) array {out['copy_ms'] * 1e3:.2f} us (L2 flushed)")
     return out
 
 
@@ -250,20 +308,27 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build_all()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    ptxas = ptxas_report(K)
 
     log("fused_energy_update against its plain version:")
     n = H * W
     errs = {}
-    for rows, L in ((n, LABELS), (n - 7, LABELS), (n, 8)):
+    for rows, L in ((n, LABELS), (n - 7, LABELS), (n, 8), (n, 32), (n, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             errs[rows, L, dtype] = check_fused_update(K, rows, L, dtype)
     t_bf16 = time_fused_update(K, n, LABELS, torch.bfloat16)
     t_f32 = time_fused_update(K, n, LABELS, torch.float32)
+    t_wide = {f"bf16_L{L}": time_fused_update(K, n, L, torch.bfloat16) for L in (32, 64)}
+    yardsticks = {key: time_yardsticks(K, n, LABELS, dtype)
+                  for key, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
 
     a = run_pipeline("A (bench configuration, lean plan, bf16)", 0.5,
                      dict(tile_bf16=True, compute_dtype="bf16"), "packed1", f32=False)
     b = run_pipeline("B (general tiled plan, f32)", 1.0, {}, "auto", f32=True)
     log(json.dumps({"pipelines": {"A": a, "B": b}}))
+    log(json.dumps({"ptxas": ptxas}))
+    log(json.dumps({"geometry": {dt: vars(K.launch_geometry(n, LABELS, elt))
+                                 for dt, elt in (("bf16", 2), ("f32", 4))}}))
 
     kernel = {
         "name": "fused_energy_update", "route": "cuda",
@@ -274,7 +339,8 @@ def main() -> int:
         "us": t_bf16["ms"] * 1e3, "bound_us": t_bf16["bound_ms"] * 1e3,
         "shape": [n, LABELS], "dtype": "bf16", "launches_b": b["launches"],
         "max_abs_err_f32": errs[n, LABELS, torch.float32],
-        "f32": t_f32,
+        "f32": t_f32, **t_wide, "yardsticks": yardsticks,
+        "design": "a warp per tile of rows, coalesced 16-byte loads, Mu in registers",
     }
     log(card_line())
     log(json.dumps({"kernels": [kernel]}))

@@ -7,21 +7,54 @@ S = W·C and the compatibility-transformed beliefs C = Q·Mu:
 
     E  = E0 + (S − C),   Q' = softmax(−E),   C' = Q'·Mu
 
-The kernel (`csrc/meanfield.cu`) makes one pass over the (n, L) rows and
-keeps Q' in registers; its source note gives the memory bound. A CUDA
-tensor goes to the kernel or raises; a CPU tensor goes to
-`fused_energy_update_reference`.
+The kernel (`csrc/meanfield.cu`) gives each warp one tile of consecutive
+rows, loaded by coalesced 16-byte words; its source note gives the memory
+bound. `launch_geometry` computes the tiles, the grid and the shared memory
+here, where the CPU tests reach it. A CUDA tensor goes to the kernel or
+raises; a CPU tensor goes to `fused_energy_update_reference`.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
-__all__ = ["fused_energy_update", "fused_energy_update_reference", "SUPPORTED_L"]
+__all__ = ["fused_energy_update", "fused_energy_update_reference", "launch_geometry",
+           "Geometry", "SUPPORTED_L"]
 
 SUPPORTED_L = (8, 16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Launch geometry (must agree with csrc/meanfield.cu)
+WARPS = 4  # warps in a block: 128 threads, __launch_bounds__(128, 4)
+TILE_WORDS = 128  # 16-byte words of each array in a warp tile: 4 a lane
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """A launch of the kernel: `num_tiles` warp tiles of `tile_rows` rows
+    (the last one ragged), one a warp, in `grid` blocks of WARPS warps;
+    warp w of the grid computes rows [w·tile_rows, (w + 1)·tile_rows) that
+    are < n. The warps hold their q scratch in `smem_bytes` of shared
+    memory."""
+
+    tile_rows: int
+    num_tiles: int
+    grid: int
+    smem_bytes: int
+
+
+def launch_geometry(n: int, L: int, elt: int) -> Geometry:
+    """The kernel's geometry for (n, L) rows of `elt`-byte values: tiles of
+    TILE_WORDS words of each array, as many as n needs."""
+    if n < 1:
+        raise ValueError(f"n={n}: the kernel needs at least one row")
+    tile_rows = TILE_WORDS * 16 // (L * elt)
+    num_tiles = -(-n // tile_rows)
+    grid = -(-num_tiles // WARPS)
+    smem = WARPS * tile_rows * (L + 4) * 4  # q in f32, rows padded by 4 floats
+    return Geometry(tile_rows, num_tiles, grid, smem)
 
 
 def fused_energy_update_reference(E0, S, C, Mu):
@@ -38,8 +71,8 @@ def _lib():
 
     fn = load_library("meanfield").fused_energy_update_launch
     # without argtypes ctypes would pass each pointer as a 32-bit int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -69,9 +102,11 @@ def fused_energy_update(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
     if n == 0:
         return E, Cn
     with torch.cuda.device(E0.device):
+        g = launch_geometry(n, L, E0.element_size())
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib()(E0.data_ptr(), S.data_ptr(), C.data_ptr(), Mu.data_ptr(),
-                     E.data_ptr(), Cn.data_ptr(), n, L, _DTYPES[E0.dtype], stream)
+                     E.data_ptr(), Cn.data_ptr(), n, L, _DTYPES[E0.dtype], g.tile_rows,
+                     g.num_tiles, g.grid, g.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"fused_energy_update launch failed: cudaError {err}")
     fused_energy_update.launches += 1

@@ -3,10 +3,13 @@
 Each source is compiled by `nvcc` for sm_90a into a shared library with a
 plain C interface, loaded with `ctypes` (no PyTorch headers, so a build
 takes seconds). Libraries go to `depth_estimation_torch/_build/` (listed in
-`.gitignore`), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. Nothing is built when the
-module is imported: `load_library` builds at first use, and `build_all`
-starts one `nvcc` per source, all at once.
+`.gitignore`), named by a hash of the source, of every header under
+`csrc/` and of the flags, so an edited source or header rebuilds and an
+unchanged one is reused. Beside each library is the compiler's log, with
+`ptxas`'s registers, shared memory and spills of every kernel
+(`build_log`). Nothing is built when the module is imported: `load_library`
+builds at first use, and `build_all` starts one `nvcc` per source, all at
+once.
 """
 from __future__ import annotations
 
@@ -17,13 +20,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load_library"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "build_log", "load_library"]
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -39,7 +42,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library of csrc/<name>.cu, keyed by the source, every header it
+    can include (csrc/**/*.cuh, *.h) and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    headers = sorted(p for p in CSRC.rglob("*") if p.suffix in (".cuh", ".h") and p.is_file())
+    for p in headers:
+        h.update(str(p.relative_to(CSRC)).encode() + b"\0" + p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -62,6 +70,7 @@ def _finish(name: str, out: Path, proc, tmp) -> Path:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
     return out
 
@@ -71,6 +80,12 @@ def build_all() -> dict[str, Path]:
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
     started = {name: _start(name) for name in names}
     return {name: _finish(name, *started[name]) for name in names}
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the current library of csrc/<name>.cu (built first
+    if needed), `ptxas info` lines included."""
+    return _finish(name, *_start(name)).with_suffix(".log").read_text()
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..models.pipeline import CRFStereoConfig
+from .device import resolve_device
 
 __all__ = ["config_from_jax", "params_from_jax"]
 
@@ -31,9 +32,11 @@ def config_from_jax(cfg_or_dict) -> CRFStereoConfig:
 
 def params_from_jax(tree, device=None):
     """A parameter pytree of arrays (nested dicts, lists, tuples) as the same
-    structure of tensors on `device` (default: the CPU), dtypes kept."""
+    structure of tensors on `device`, dtypes kept. `None` means the GPU, as
+    for every entry point of the port: without one it raises."""
+    dev = resolve_device(device)
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
+        return {k: params_from_jax(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_jax(v, device) for v in tree)
-    return torch.as_tensor(np.array(tree), device=device)
+        return type(tree)(params_from_jax(v, dev) for v in tree)
+    return torch.as_tensor(np.array(tree), device=dev)

@@ -19,14 +19,14 @@ def _inputs(seed, n, L):
             rs.rand(n, L).astype(np.float32), rs.rand(L, L).astype(np.float32))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,L", [(110592, 16), (110585, 16), (4099, 8), (1000, 32),
-                                 (300, 64)])
-def test_cuda_kernel_matches_plain_version(n, L, dtype):
+def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    arrays = [torch.from_numpy(a).to("cuda", dtype) for a in _inputs(3, n, L)]
+
+
+def _check(arrays, dtype):
+    """One launch, counted once, against the plain version on the same inputs."""
+    arrays = [torch.from_numpy(a).to("cuda", dtype) for a in arrays]
     before = T.fused_energy_update.launches
     E_k, C_k = T.fused_energy_update(*arrays)
     torch.cuda.synchronize()
@@ -39,3 +39,42 @@ def test_cuda_kernel_matches_plain_version(n, L, dtype):
         ulp = 2.0 ** (torch.floor(torch.log2(E_r.float().abs().clamp_min(1e-30))) - 7)
         assert bool(((E_k.float() - E_r.float()).abs() <= ulp).all())
         torch.testing.assert_close(C_k.float(), C_r.float(), rtol=0, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,L", [(110592, 16), (110585, 16), (4099, 8), (1000, 32),
+                                 (300, 64)])
+def test_cuda_kernel_matches_plain_version(n, L, dtype):
+    _needs_card()
+    _check(_inputs(3, n, L), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", T.SUPPORTED_L)
+@pytest.mark.parametrize("case", ["1", "33", "tile-1", "tile+1", "3 tiles+5", "wave+5"])
+def test_cuda_kernel_at_the_edges_of_its_geometry(case, L, dtype):
+    """Row counts around a warp tile (from 8 to 128 rows, whichever L and
+    dtype), a ragged tile after three full ones, and one full wave of the
+    card's block slots plus 5 rows; each n's own geometry is launched."""
+    _needs_card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    elt = torch.tensor([], dtype=dtype).element_size()
+    tile = T.launch_geometry(1, L, elt).tile_rows
+    wave = sms * 4 * T.WARPS * tile  # __launch_bounds__(128, 4): 4 blocks an SM
+    n = {"tile-1": tile - 1, "tile+1": tile + 1, "3 tiles+5": 3 * tile + 5,
+         "wave+5": wave + 5}.get(case) or int(case)
+    g = T.launch_geometry(n, L, elt)
+    assert g.tile_rows == tile and n - (g.num_tiles - 1) * tile == (n - 1) % tile + 1
+    _check(_inputs(4, n, L), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", T.SUPPORTED_L)
+def test_cuda_kernel_subtracts_the_max_from_large_energies(L, dtype):
+    """Energies of magnitude ~1e3: exp(-E) alone would underflow to 0 in f32."""
+    _needs_card()
+    e0, s, c, mu = _inputs(5, 5000, L)
+    _check((e0 * 100 + 500, s * 1e3, c * 1e3, mu), dtype)

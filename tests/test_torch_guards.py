@@ -3,6 +3,7 @@ JAX package, its entry points default to the GPU and refuse to fall back
 to the CPU, and the fused update's wrapper takes its plain version only
 for CPU tensors."""
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -16,6 +17,7 @@ from depth_estimation_torch.models import pipeline as TP
 from depth_estimation_torch.ops.cuda import meanfield as K
 from depth_estimation_torch.utils import build
 from depth_estimation_torch.utils.device import resolve_device
+from depth_estimation_torch.utils.weights import params_from_jax
 
 PKG = pathlib.Path(depth_estimation_torch.__file__).parent
 REPO = PKG.parent
@@ -61,7 +63,10 @@ def test_entry_points_default_to_the_gpu():
         TP.calibrate_capacity(left, cfg, tiled=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax({"w": np.ones(3, np.float32)})
     assert resolve_device("cpu").type == "cpu"
+    assert params_from_jax({"w": np.ones(3, np.float32)}, device="cpu")["w"].device.type == "cpu"
 
 
 def test_cpu_tensors_take_the_plain_version_uncounted():
@@ -93,6 +98,29 @@ def test_build_is_keyed_by_source_and_out_of_git():
     assert "depth_estimation_torch/_build/" in ignored
     assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == ["meanfield"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert ("-Xptxas", "-v") in zip(build.NVCC_FLAGS, build.NVCC_FLAGS[1:])
+
+
+def test_build_is_keyed_by_every_header(tmp_path, monkeypatch):
+    """Editing, adding or removing a header under csrc/ changes the library
+    that a source builds into, so a stale build is never reused."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    header = csrc / "common.cuh"
+    header.write_text("#pragma once\n")
+    seen = {build._target("meanfield")}
+    assert build._target("meanfield") in seen  # stable while nothing changes
+    header.write_text(header.read_text() + "// edited\n")
+    seen.add(build._target("meanfield"))
+    (csrc / "extra.h").write_text("#pragma once\n")
+    seen.add(build._target("meanfield"))
+    (csrc / "extra.h").unlink()
+    header.unlink()
+    seen.add(build._target("meanfield"))
+    assert len(seen) == 4
+    assert all(p.parent == tmp_path / "_build" for p in seen)
 
 
 def test_infer_cli_on_cpu(tmp_path, capsys):

@@ -66,7 +66,7 @@ def test_guides_match_jax():
                                np.asarray(Jg.pixel_coords(7, 9)), rtol=1e-6, atol=1e-6)
     jp = Jg.ijrgb_guide_init(0.2, 0.3)
     want = np.asarray(Jg.ijrgb_guide(jp, jnp.asarray(left)))
-    got = Tg.ijrgb_guide(params_from_jax(jp), torch.from_numpy(left)).numpy()
+    got = Tg.ijrgb_guide(params_from_jax(jp, device="cpu"), torch.from_numpy(left)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
@@ -79,7 +79,7 @@ def test_compatibility_matches_jax():
     np.testing.assert_array_equal(Tc.potts_matrix(5).numpy(), np.asarray(Jc.potts_matrix(5)))
     jp = Jc.charb_init(0.05)
     want = np.asarray(Jc.charb_matrix(jp, lj))
-    got = Tc.charb_matrix(params_from_jax(jp), lt).numpy()
+    got = Tc.charb_matrix(params_from_jax(jp, device="cpu"), lt).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
