@@ -5,7 +5,7 @@
 
 Drives the port's flagship stereo inference, `crf_stereo_infer` on a
 288×384 pair with 16 labels, a 5-D bilateral guide and 5 mean-field
-iterations, through both lattice plan paths:
+iterations, through both lattice plan paths, then its training path:
 
   A. the bench configuration: calibrated capacity, 32-px tiles with bf16
      incidence blocks, bf16 mean-field state and the fused update, on a
@@ -13,18 +13,31 @@ iterations, through both lattice plan paths:
      takes the lean per-tile plan;
   B. the same pair at full contrast, whose calibration keeps 'auto' and so
      takes the general plan with tiled tables, in float32 with the fused
-     update.
+     update;
+  C. one training step of the CRF-as-RNN layer (`CRFasRNN`, lattice
+     backend, trainable 5-D guide, 5 iterations) on A's pair: forward,
+     backward through the lattice (∂src and the 4-filter ∂ref) and an Adam
+     step, with the plan calibrated as the JAX package's `trainable_step`
+     (capacity at headroom 8, 32-px tiles, bf16 incidence blocks, tile_u
+     at headroom 2, the suggested sort mode); its first step is held
+     against the port's CPU run of the same step, then timed and profiled;
+  D. three steps of `train_tsukuba_crf` (random guidance, an 8-D guide,
+     the general untiled plan at the default capacity) on B's pair;
+  E. B's pair untiled in float32 with the piece-splat tables
+     (`calibrate_capacity(pieces=True)`), held against the same run
+     without them.
 
 It builds the CUDA kernels from `depth_estimation_torch/csrc` (one `nvcc`
 per source, all at once), prints what `ptxas` reports for every kernel
 instantiation (registers, shared memory, spills; more than 128 registers or
 any spill fails), holds each kernel against its plain PyTorch version on
-the card and times both, counts the kernel's launches in each
-pipeline run, and checks each pipeline's disparity against the same
-pipeline without the kernel on the card and against the port's own CPU run
-(the path the CPU tests hold against the JAX package). Any failed check
-raises. The last lines are the card's name and power limit, one JSON object
-of kernel numbers, and `{"ok": true, "device": {...}}`. Without a GPU, or
+the card and times both, counts the kernel's launches in each run of A, B
+and E (C and D launch no hand-written kernel, and count none), and checks
+each pipeline's disparity against the same pipeline without the kernel on
+the card and against the port's own CPU run (the path the CPU tests hold
+against the JAX package). Any failed check raises. The last lines are the
+card's name and power limit, one JSON object of kernel numbers, and
+`{"ok": true, "device": {...}}`. Without a GPU, or
 without the package beside it, the script fails before printing a result.
 """
 from __future__ import annotations
@@ -48,6 +61,21 @@ F32_TOL = dict(rtol=1e-5, atol=1e-5)
 MAX_REGISTERS = 128  # 4 blocks of 128 threads per SM: __launch_bounds__(128, 4)
 DISP_ATOL = 5e-3  # px: the tolerance of the JAX package's fused-update test
 BF16_MEAN_TOL = 0.1  # px: mean |Δdisparity| where the two sides round in bf16
+PIECES_ATOL = 1e-4  # px: pieces only reorder float32 splat sums
+# C's first step, card against CPU, as fractions of the CPU's magnitude. The
+# loss, and the loss and every gradient of the same step with float32
+# incidence blocks: f32 sums taken in another order. The gradients with
+# bf16 blocks are not held to the CPU run: ∂ref is a difference of large
+# filtered terms whose inputs the bf16 blocks round to 2^-8, so a one-ulp
+# difference in an upstream gradient flips roundings that the cancellation
+# magnifies (the card's own repeated runs differ, its index_add_ adding in
+# no fixed order). They are printed beside the float32-block gradients and
+# must have their signs for the guide scales: at 96×128 on the CPU they
+# were 35% and 62% off them.
+STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-4, 1e-3
+# plus an absolute floor for the float32-block gradients: d/d log_s (about
+# 0.01) is a sum that cancels, and two card runs of it differ by ~6e-6
+STEP_GRAD_ATOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -261,7 +289,7 @@ def run_pipeline(tag: str, contrast: float, overrides: dict, want_sort_mode: str
     crf_stereo_infer(left, right, cfg, device=DEV)  # warm-up
     ms = median_ms(lambda: crf_stereo_infer(left, right, cfg, device=DEV), 10)
     log(f"pipeline {tag}: warm pipeline {ms:.3f} ms (median of 10, CUDA events)")
-    busy_ms = profile(tag, lambda: crf_stereo_infer(left, right, cfg, device=DEV))
+    busy_ms = profile(f"pipeline {tag}", lambda: crf_stereo_infer(left, right, cfg, device=DEV))
     return {"launches": launches, "ms": ms, "device_busy_ms": busy_ms, "lean": lean,
             "sort_mode": cfg.sort_mode, "max_vertices": cfg.max_vertices,
             "tile_u": cfg.tile_u, "num_valid": num_valid}
@@ -283,13 +311,212 @@ def profile(tag: str, fn, top: int = 8):
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(r[0] for r in rows)
     if busy_ms == 0:
-        log(f"pipeline {tag}: profiler saw no device time: busy share not measured")
+        log(f"{tag}: profiler saw no device time: busy share not measured")
         return None
-    log(f"pipeline {tag}: profiled run {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
+    log(f"{tag}: profiled run {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), {sum(r[1] for r in rows)} device ops; top by device time:")
     for t, count, key in sorted(rows, reverse=True)[:top]:
         log(f"    {t:8.3f} ms {count:4d}x  {key[:90]}")
     return busy_ms
+
+
+# ---------------------------------------------------------------------------
+# the training path and the piece splat
+# ---------------------------------------------------------------------------
+
+
+def trainable_inputs(left, right, gt, device: str) -> dict:
+    """C's tensors on `device`: the images, the ground truth, the unary logits."""
+    from depth_estimation_torch.models.pipeline import CRFStereoConfig, stereo_unary
+
+    t = {k: torch.as_tensor(v, device=device) for k, v in (("left", left), ("right", right),
+                                                            ("gt", gt))}
+    t["logits"] = -stereo_unary(t["left"], t["right"], CRFStereoConfig(num_disp=LABELS))
+    return t
+
+
+def trainable_plan(left: torch.Tensor) -> dict:
+    """C's plan options, calibrated on the guide at the initial scales as
+    the JAX package's `trainable_step` does."""
+    from depth_estimation_torch.crf.guides import ijrgb_guide, ijrgb_guide_init
+    from depth_estimation_torch.models.pipeline import blocked
+    from depth_estimation_torch.ops.permutohedral import (suggest_capacity, suggest_sort_mode,
+                                                          suggest_tile_u)
+
+    g0 = ijrgb_guide(ijrgb_guide_init(device=left.device), left).detach()
+    ref0 = g0.reshape(-1, g0.shape[-1])
+    cap = suggest_capacity(ref0, headroom=8.0)
+    return dict(max_vertices=cap, tile_px=TILE_PX, tile_bf16=True,
+                sort_mode=suggest_sort_mode(ref0),
+                tile_u=suggest_tile_u(blocked(g0, TILE_PX), TILE_PX * TILE_PX, cap, headroom=2.0))
+
+
+def trainable_loss(model, t: dict, kw: dict):
+    from depth_estimation_torch.ops.costvolume import expected_disparity
+    from depth_estimation_torch.train.metrics import masked_mse
+
+    logits = model(t["left"], t["logits"], niters=NITERS, **kw)
+    return masked_mse(expected_disparity(logits), t["gt"], (t["gt"] > 0).float())
+
+
+def first_step(t: dict, kw: dict):
+    """The loss and gradients of a fresh model's first step on t's device."""
+    from depth_estimation_torch.models.refiner import CRFasRNN
+
+    model = CRFasRNN(backend="lattice", device=t["left"].device)
+    loss = trainable_loss(model, t, kw)
+    loss.backward()
+    return loss.item(), {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+
+def run_trainable_step() -> dict:
+    """C: calibrate, hold the first step against the CPU, time and profile."""
+    from depth_estimation_torch.models.refiner import CRFasRNN
+    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
+
+    left, right, gt = synthetic_pair(0.5)
+    t = trainable_inputs(left, right, gt, DEV)
+    t0 = time.perf_counter()
+    kw = trainable_plan(t["left"])
+    log(f"step C: calibrated in {time.perf_counter() - t0:.2f} s: {kw}")
+
+    fused_energy_update.launches = 0
+    loss_gpu, grads_gpu = first_step(t, kw)
+    torch.cuda.synchronize()
+    launches = fused_energy_update.launches
+    check(launches == 0, f"the training step launched {launches} fused updates")
+    check(np.isfinite(loss_gpu) and all(bool(torch.isfinite(g).all()) for g in grads_gpu.values()),
+          "non-finite loss or gradient")
+    check(float(grads_gpu["w.s_ij"].abs()) > 0, "no gradient reaches s_ij")
+    t_cpu = trainable_inputs(left, right, gt, "cpu")
+    kw32 = {**kw, "tile_bf16": False}
+    t0 = time.perf_counter()
+    runs = {"card, bf16 blocks": (loss_gpu, grads_gpu),
+            "card again, bf16 blocks": first_step(t, kw),
+            "CPU, bf16 blocks": first_step(t_cpu, kw),
+            "card, f32 blocks": first_step(t, kw32),
+            "CPU, f32 blocks": first_step(t_cpu, kw32)}
+    cpu_s = time.perf_counter() - t0
+    names = sorted(grads_gpu)
+
+    def rel(a, b):  # |a − b| against |b|, the loss and each gradient
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        return {"loss": abs(la - lb) / abs(lb),
+                **{k: float((ga[k] - gb[k]).abs().max() / gb[k].abs().max()) for k in names}}
+
+    for name, (loss, grads) in runs.items():
+        log(f"step C: first step, {name}: loss {loss:.7g}; gradients "
+            + ", ".join(f"{k} {float(grads[k].flatten()[0]):.7g}" for k in names))
+    diffs = {f"{a} vs {b}": rel(a, b) for a, b in (
+        ("card, bf16 blocks", "CPU, bf16 blocks"), ("card again, bf16 blocks", "card, bf16 blocks"),
+        ("card, f32 blocks", "CPU, f32 blocks"), ("card, bf16 blocks", "card, f32 blocks"))}
+    for k, v in diffs.items():
+        log(f"step C: relative difference, {k}: " + ", ".join(f"{n} {x:.3g}" for n, x in v.items()))
+    d_bf16, d_f32 = diffs["card, bf16 blocks vs CPU, bf16 blocks"], diffs[
+        "card, f32 blocks vs CPU, f32 blocks"]
+    check(d_bf16["loss"] <= STEP_LOSS_RTOL, f"bf16 loss differs from the CPU run: {d_bf16}")
+    (loss32, g32), (loss32_cpu, g32_cpu) = runs["card, f32 blocks"], runs["CPU, f32 blocks"]
+    check(abs(loss32 - loss32_cpu) <= STEP_LOSS_RTOL * abs(loss32_cpu)
+          and all(bool(((g32[k] - g32_cpu[k]).abs()
+                        <= STEP_GRAD_ATOL + STEP_GRAD_RTOL * g32_cpu[k].abs()).all())
+                  for k in names), f"the f32-block step differs from the CPU run: {d_f32}")
+    bf16, f32 = runs["card, bf16 blocks"][1], g32
+    check(all(torch.equal(bf16[k].sign(), f32[k].sign()) for k in ("w.s_ij", "w.s_rgb")),
+          "bf16-block guide-scale gradients change sign")
+
+    model = CRFasRNN(backend="lattice", device=DEV)
+    opt = torch.optim.Adam(model.parameters(), lr=3e-2)
+    losses = []
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = trainable_loss(model, t, kw)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+
+    for _ in range(2):
+        step()
+    ms = median_ms(step, 10)
+    busy_ms = profile("step C", step)
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), "non-finite loss")
+    log(f"step C: step {ms:.3f} ms (median of 10 after 2 warm-up steps, CUDA events); "
+        f"losses {[round(x, 6) for x in losses]}")
+    return {"ms": ms, "device_busy_ms": busy_ms, "launches": launches, "first_step": {
+                k: {"loss": v[0], **{n: float(v[1][n].flatten()[0]) for n in names}}
+                for k, v in runs.items()}, "relative_differences": diffs,
+            "four_more_first_steps_s": cpu_s, "losses": losses,
+            **{k: kw[k] for k in ("max_vertices", "tile_u", "sort_mode")}}
+
+
+def run_train_tsukuba() -> dict:
+    """D: three steps of `train_tsukuba_crf` at the JAX defaults."""
+    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
+    from depth_estimation_torch.train.experiments import train_tsukuba_crf
+
+    left, right, gt = synthetic_pair(1.0)
+    fused_energy_update.launches = 0
+    t0 = time.perf_counter()
+    model, hist = train_tsukuba_crf(left, right, gt, num_steps=3, num_disp=LABELS, niters=NITERS,
+                                    guidance="random", device=DEV)
+    wall = time.perf_counter() - t0
+    launches = fused_energy_update.launches
+    check(launches == 0, f"train_tsukuba_crf launched {launches} fused updates")
+    values = hist["loss"] + [hist["mse_before"], hist["mse_after"]]
+    check(all(np.isfinite(values)) and all(bool(torch.isfinite(p).all())
+                                           for p in model.parameters()), "non-finite values")
+    step_s = statistics.median(hist["step_seconds"])
+    log(f"step D: train_tsukuba_crf 3 steps in {wall:.2f} s: steps "
+        f"{[round(x * 1e3, 3) for x in hist['step_seconds']]} ms (median {step_s * 1e3:.3f} ms, "
+        f"host clock, each ending with its loss on the host); loss {hist['loss']}, MSE "
+        f"{hist['mse_before']:.6f} before, {hist['mse_after']:.6f} after")
+    return {"step_ms": step_s * 1e3, "steps_ms": [x * 1e3 for x in hist["step_seconds"]],
+            "losses": hist["loss"], "mse_before": hist["mse_before"],
+            "mse_after": hist["mse_after"], "launches": launches, "wall_s": wall}
+
+
+def run_pieces() -> dict:
+    """E: B's pair, untiled, with and without the piece tables."""
+    from depth_estimation_torch.models.pipeline import (CRFStereoConfig, calibrate_capacity,
+                                                        crf_stereo_infer)
+    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
+
+    left, right, _ = synthetic_pair(1.0)
+    t0 = time.perf_counter()
+    cfg = calibrate_capacity(left, CRFStereoConfig(num_disp=LABELS, niters=NITERS), pieces=True,
+                             device=DEV)
+    cfg = replace(cfg, fused_update=True)
+    log(f"pipeline E: calibrated in {time.perf_counter() - t0:.2f} s: max_vertices="
+        f"{cfg.max_vertices} max_pieces={cfg.max_pieces} sort_mode={cfg.sort_mode}")
+    check(cfg.max_pieces is not None and cfg.tile_px is None, cfg)
+    plain = replace(cfg, max_pieces=None)
+
+    fused_energy_update.launches = 0
+    out = crf_stereo_infer(left, right, cfg, device=DEV)
+    torch.cuda.synchronize()
+    launches = fused_energy_update.launches
+    check(launches == NITERS, f"{launches} launches, want {NITERS}")
+    plan = out["plans"][0]
+    pieces, num_valid = int(plan.num_pieces), int(plan.num_valid)
+    log(f"pipeline E: {pieces} pieces of {cfg.max_pieces}, num_valid={num_valid} of "
+        f"{cfg.max_vertices}, fused_energy_update launches in one run = {launches}")
+    check(pieces <= cfg.max_pieces and num_valid <= cfg.max_vertices, "capacity overflow")
+    disp = out["disparity"]
+    check(bool(torch.isfinite(disp).all()), "non-finite disparity")
+    ref = crf_stereo_infer(left, right, plain, device=DEV)["disparity"]
+    diff = float((disp - ref).abs().max())
+    log(f"pipeline E: |disparity with pieces - without| max {diff:.3g} px")
+    check(diff <= PIECES_ATOL, f"pieces move the disparity by {diff} px")
+    out_ms = {}
+    for name, c in (("pieces", cfg), ("no_pieces", plain), ("pieces_again", cfg),
+                    ("no_pieces_again", plain)):
+        crf_stereo_infer(left, right, c, device=DEV)
+        out_ms[name] = median_ms(lambda: crf_stereo_infer(left, right, c, device=DEV), 10)
+    log(f"pipeline E: warm medians of 10, in turns: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in out_ms.items()))
+    return {"launches": launches, "max_abs_diff": diff, "num_pieces": pieces,
+            "max_pieces": cfg.max_pieces, **{f"{k}_ms": v for k, v in out_ms.items()}}
 
 
 def main() -> int:
@@ -325,7 +552,11 @@ def main() -> int:
     a = run_pipeline("A (bench configuration, lean plan, bf16)", 0.5,
                      dict(tile_bf16=True, compute_dtype="bf16"), "packed1", f32=False)
     b = run_pipeline("B (general tiled plan, f32)", 1.0, {}, "auto", f32=True)
-    log(json.dumps({"pipelines": {"A": a, "B": b}}))
+    c = run_trainable_step()
+    d = run_train_tsukuba()
+    e = run_pieces()
+    log(json.dumps({"pipelines": {"A": a, "B": b, "E": e}}))
+    log(json.dumps({"training": {"C": c, "D": d}}))
     log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"geometry": {dt: vars(K.launch_geometry(n, LABELS, elt))
                                  for dt, elt in (("bf16", 2), ("f32", 4))}}))

@@ -2,8 +2,9 @@
 the JAX package's `crf/meanfield.py`).
 
 An eager loop keeps only the live state: one iteration's (n, L) tensors
-are freed as the next is made, so there is no unrolled-program memory
-growth and `unroll` is accepted and ignored. Layout: label axis last.
+are freed as the next is made (autograd keeps what a backward needs), so
+there is no unrolled-program memory growth and `unroll` is accepted and
+ignored. Layout: label axis last.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Callable
 
 import torch
 
-__all__ = ["mean_field_logits", "mean_field_infer"]
+__all__ = ["mean_field_logits", "mean_field_infer", "crf_as_rnn"]
 
 
 def _matmul_like(Q: torch.Tensor, Mu: torch.Tensor) -> torch.Tensor:
@@ -47,3 +48,17 @@ def mean_field_infer(
     matrix or a callable Q ↦ Q·Mu."""
     compat_fn = Mu if callable(Mu) else (lambda Q: _matmul_like(Q, Mu))
     return torch.softmax(mean_field_logits(E0, message_fn, compat_fn, niters), dim=-1)
+
+
+def crf_as_rnn(
+    logits: torch.Tensor,
+    message_fn: Callable[[torch.Tensor], torch.Tensor],
+    compat_fn: Callable[[torch.Tensor], torch.Tensor],
+    niters: int = 5,
+    confidence: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The trainable CRF layer: refined (..., L) logits from unary logits
+    (E0 = −logits·confidence, `confidence` a broadcastable per-pixel weight
+    in [0, 1] or None), differentiable through every iteration."""
+    E0 = -logits if confidence is None else -logits * confidence
+    return mean_field_logits(E0, message_fn, compat_fn, niters)

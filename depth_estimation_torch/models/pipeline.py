@@ -24,11 +24,12 @@ from ..ops.costvolume import cost_volume, expected_disparity
 from ..ops.cuda.meanfield import fused_energy_update
 from ..ops.dense_gaussian import dense_gaussian_filter
 from ..ops.permutohedral import (apply_plan, build_plan, rotation_matrices,
-                                 suggest_capacity, suggest_sort_mode,
+                                 suggest_capacity, suggest_pieces, suggest_sort_mode,
                                  suggest_tile_u)
 from ..utils.device import resolve_device
 
-__all__ = ["CRFStereoConfig", "stereo_unary", "calibrate_capacity", "crf_stereo_infer"]
+__all__ = ["CRFStereoConfig", "stereo_unary", "calibrate_capacity", "crf_stereo_infer",
+           "blocked", "unblocked"]
 
 
 @dataclass(frozen=True)
@@ -47,7 +48,7 @@ class CRFStereoConfig:
     mu_scale: float = 1.0
     # lattice vertex capacity; None = pow2 ≥ 2n (capped at n·(d+1))
     max_vertices: int | None = None
-    # piece-splat capacity: not ported, must stay None
+    # piece-splat capacity; None splats entry-wise
     max_pieces: int | None = None
     # average k rotated lattices (k× plan + apply cost)
     num_lattices: int = 1
@@ -79,14 +80,14 @@ def _edge_pad(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
     return F.pad(x.permute(2, 0, 1), (0, pad_w, 0, pad_h), mode="replicate").permute(1, 2, 0)
 
 
-def _blocked(x: torch.Tensor, B: int) -> torch.Tensor:
+def blocked(x: torch.Tensor, B: int) -> torch.Tensor:
     """(h, w, K) → (h·w, K) in B × B block order."""
     h, w, K = x.shape
     return x.reshape(h // B, B, w // B, B, K).permute(0, 2, 1, 3, 4).reshape(h * w, K)
 
 
-def _unblocked(flat: torch.Tensor, h: int, w: int, B: int) -> torch.Tensor:
-    """Inverse of `_blocked`, to (h, w, K)."""
+def unblocked(flat: torch.Tensor, h: int, w: int, B: int) -> torch.Tensor:
+    """Inverse of `blocked`, to (h, w, K)."""
     K = flat.shape[-1]
     return flat.reshape(h // B, w // B, B, B, K).permute(0, 2, 1, 3, 4).reshape(h, w, K)
 
@@ -107,14 +108,11 @@ def calibrate_capacity(
     device=None,
 ) -> CRFStereoConfig:
     """A config sized to THIS image's guide: `max_vertices` = pow2 ≥
-    headroom·occupancy, the plan sort mode, and with `tiled` the tile size
-    and per-tile capacity (skipped when the incidence blocks would exceed
+    headroom·occupancy, the plan sort mode, with `pieces` the piece
+    capacity (1.5× this guide's pieces), and with `tiled` the tile size and
+    per-tile capacity (skipped when the incidence blocks would exceed
     `max_incidence_bytes`). 'packed1' is pinned only when the guide's
     packed key fits and `order_by_sum` is off."""
-    if pieces:
-        raise NotImplementedError(
-            "piece-splat tables are not ported yet (ROADMAP.md, queue A: "
-            "'piece-splat tables')")
     if cfg.backend != "lattice":
         return cfg
     dev = resolve_device(device)
@@ -124,15 +122,19 @@ def calibrate_capacity(
     ref = guide.reshape(-1, guide.shape[-1])
     cap = suggest_capacity(ref, headroom=headroom)
     sort_mode = "auto" if cfg.order_by_sum else suggest_sort_mode(ref)
+    pack = max(1, 128 // max(cfg.num_disp, 1))
+    max_pieces = (suggest_pieces(ref, cap, pack=pack, headroom=1.5)
+                  if pieces and pack > 1 else None)
     tile_kw = {}
     if tiled:
         B = tile_px
         hp, wp = h + (-h % B), w + (-w % B)
         gp = _edge_pad(guide, hp - h, wp - w) if (hp, wp) != (h, w) else guide
-        tu = suggest_tile_u(_blocked(gp, B), B * B, cap)
+        tu = suggest_tile_u(blocked(gp, B), B * B, cap)
         if hp * wp * tu * 4 <= max_incidence_bytes:
             tile_kw = {"tile_px": B, "tile_u": tu}
-    return replace(cfg, max_vertices=cap, max_pieces=None, sort_mode=sort_mode, **tile_kw)
+    return replace(cfg, max_vertices=cap, max_pieces=max_pieces, sort_mode=sort_mode,
+                   **tile_kw)
 
 
 def crf_stereo_infer(left, right, cfg: CRFStereoConfig, device=None) -> dict:
@@ -161,7 +163,7 @@ def crf_stereo_infer(left, right, cfg: CRFStereoConfig, device=None) -> dict:
     # a square image patch; only the final reshape undoes it
     tiled = lattice and B is not None and h % B == 0 and w % B == 0
     if tiled:
-        ref, E0_flat = _blocked(guide, B), _blocked(E0, B)
+        ref, E0_flat = blocked(guide, B), blocked(E0, B)
     else:
         ref, E0_flat = guide.reshape(h * w, -1), E0.reshape(h * w, cfg.num_disp)
 
@@ -209,8 +211,8 @@ def crf_stereo_infer(left, right, cfg: CRFStereoConfig, device=None) -> dict:
         Q = mean_field_infer(E0_flat, message_fn, Mu, cfg.niters).float()
         logits = torch.log(Q + 1e-20)
     if tiled:
-        Qimg = _unblocked(Q, h, w, B)
-        disp_crf = expected_disparity(_unblocked(logits, h, w, B))
+        Qimg = unblocked(Q, h, w, B)
+        disp_crf = expected_disparity(unblocked(logits, h, w, B))
     else:
         Qimg = Q.reshape(h, w, cfg.num_disp)
         disp_crf = expected_disparity(logits).reshape(h, w)

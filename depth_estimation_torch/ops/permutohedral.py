@@ -16,15 +16,21 @@ The O(n) approximation to dense Gaussian filtering
           1/(1+2^-d)).
 
 Static-capacity semantics are the JAX package's: C = `max_vertices`
-slots, slot C is the zero sentinel, vertices beyond C and entries of tiles
-beyond `tile_u` soft-drop (counted by `num_valid` > C and `tile_overflow`).
-Packed sort keys are int64, so a pinned 'packed1' raises instead of
-wrapping when the ranges do not fit. The piece-splat tables are not ported.
+slots, slot C is the zero sentinel, vertices beyond C, entries of tiles
+beyond `tile_u` and pieces beyond `max_pieces` soft-drop (counted by
+`num_valid` > C, `tile_overflow` and `num_pieces` > `max_pieces`). Packed
+sort keys are int64, so a pinned 'packed1' raises instead of wrapping when
+the ranges do not fit.
 
 Splat sums go through `index_add_` into the (C+1, L) vertex table in f32
 (the JAX package's CSR boundary reduce computes the same sums in another
 order), so the plan keeps slot ids and no slot-sorted entry tables, CSR
 boundaries or `band`.
+
+`lattice_filter_planned` is differentiable in `src` and `ref` through a
+`torch.autograd.Function`: ∂src is the transposed filter (the blur axes
+in reverse), ∂ref the analytic 4-filter identity of the dense Gaussian,
+both through the forward's plan.
 """
 from __future__ import annotations
 
@@ -44,11 +50,19 @@ __all__ = [
     "suggest_capacity",
     "suggest_sort_mode",
     "suggest_tile_u",
+    "suggest_pieces",
+    "lattice_filter_planned",
+    "lattice_filter",
+    "lattice_adjacency",
+    "lattice_filter_batched",
+    "batched_lattice_adjacency",
 ]
 
 _I64 = torch.int64
 # packed int64 sort keys keep one spare bit for the neighbor-delta arithmetic
 _PACK_BITS = 62
+# the piece splat gathers rows of at most this many values (G·L)
+_LANES = 128
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +166,9 @@ class PermutohedralPlan(NamedTuple):
     C = `neighbors.shape[1]` is the static vertex capacity; slot C is the
     zero sentinel for missing neighbors and capacity overflow. A lean tiled
     plan sets the entry-wise table `slot` to None and runs only through the
-    tiled tables."""
+    tiled tables. The piece tables describe maximal runs of consecutive
+    pixels, inside one group of G = `pack` pixels, that splat into one
+    slot: one (G·L)-wide row gather and a (G,) weight contraction a piece."""
 
     slot: torch.Tensor | None  # (n, d+1) vertex slot per (pixel, remainder), ≤ C
     bary: torch.Tensor  # (n, d+1) barycentric weights
@@ -161,6 +177,10 @@ class PermutohedralPlan(NamedTuple):
     tile_A: torch.Tensor | None = None  # (T, P, U) dense barycentric blocks
     tile_vid: torch.Tensor | None = None  # (T, U) global slot per local id
     tile_overflow: torch.Tensor | None = None  # () entries dropped (tile > U)
+    piece_group: torch.Tensor | None = None  # (T_P,) G-pixel group of each piece
+    piece_weights: torch.Tensor | None = None  # (T_P, G) bary weight per pixel of it
+    piece_slot: torch.Tensor | None = None  # (T_P,) its slot (C: padding, dropped)
+    num_pieces: torch.Tensor | None = None  # () pieces found (may exceed T_P: dropped)
 
     @property
     def d(self) -> int:
@@ -305,20 +325,20 @@ def build_plan(
 
     Args:
       max_vertices: static capacity C (default n·(d+1), the worst case).
-      max_pieces, pack: the piece-splat tables, not ported (raises).
+      max_pieces, pack: build the piece tables with capacity T_P =
+        `max_pieces` and G = `pack` pixels a group (size it with
+        `suggest_pieces`; pieces beyond T_P drop their mass). The splat
+        uses them when G·L ≤ 128 and the plan is untiled.
       order_by_sum: prepend the coordinate sum as the most significant
         sort column (the same vertices in another slot order).
       tile, tile_u, tile_bf16: build the (T, P=tile, U=tile_u) incidence
         blocks of the tiled splat/slice (n % tile == 0), in bf16 if asked.
       sort_mode: 'auto' | 'packed1' | 'packed2' | 'lex'. 'packed1' with
-        `tile` (and order_by_sum False) takes the lean per-tile build.
+        `tile` (order_by_sum False, no pieces) takes the lean per-tile build.
     """
     n, d = ref.shape
-    if max_pieces is not None:
-        raise NotImplementedError(
-            "piece-splat tables are not ported yet (ROADMAP.md, queue A: "
-            "'piece-splat tables')")
-    if tile is not None and sort_mode == "packed1" and not order_by_sum:
+    if (tile is not None and sort_mode == "packed1" and not order_by_sum
+            and max_pieces is None):
         C_lean = n * (d + 1) if max_vertices is None else int(max_vertices)
         return _build_plan_tiled_lean(ref, C_lean, int(tile), int(tile_u), tile_bf16)
     dev = ref.device
@@ -359,6 +379,11 @@ def build_plan(
     ])
     neighbors = _neighbors(_join(list(unique_keys.T), list(queries.T), sort_mode), d, C)
 
+    pieces = {}
+    if max_pieces is not None and pack > 1:
+        pieces = _piece_tables(slot.T.reshape(N), bary_t.reshape(N), n, C,
+                               int(max_pieces), int(pack))
+
     tile_A = tile_vid = tile_overflow = None
     if tile is not None:
         # --- 4) tiled incidence tables: group entries by (tile, slot)
@@ -396,7 +421,34 @@ def build_plan(
 
     return PermutohedralPlan(
         slot=slot, bary=bary_t.T, neighbors=neighbors, num_valid=num_valid,
-        tile_A=tile_A, tile_vid=tile_vid, tile_overflow=tile_overflow)
+        tile_A=tile_A, tile_vid=tile_vid, tile_overflow=tile_overflow, **pieces)
+
+
+def _piece_tables(slot_e: torch.Tensor, bary_e: torch.Tensor, n: int, C: int,
+                  T_P: int, G: int) -> dict:
+    """Piece tables from the (N,) remainder-major entry slots and weights
+    (entry e = r·n + i): one stable sort of the entries by (slot, pixel),
+    then a piece breaks where the slot changes, the pixel is not the next
+    one, or the next G-pixel group begins. Pieces come in slot order, as in
+    the JAX package, so the same pieces drop when T_P binds."""
+    dev = slot_e.device
+    pixel_e = torch.arange(slot_e.shape[0], device=dev) % n
+    _, order = torch.sort(slot_e * n + pixel_e, stable=True)
+    s_slot, s_pix, s_w = slot_e[order], pixel_e[order], bary_e[order]
+    brk = ((s_slot[1:] != s_slot[:-1]) | (s_pix[1:] != s_pix[:-1] + 1)
+           | (s_pix[1:] // G != s_pix[:-1] // G))
+    head = _heads(brk)
+    pid = torch.cumsum(head, 0) - 1
+    ok = pid < T_P
+    weights = torch.zeros(T_P * G + 1, dtype=s_w.dtype, device=dev)
+    weights[torch.where(ok, pid * G + s_pix % G, T_P * G)] = s_w
+    at_head = torch.where(head & ok, pid, T_P)
+    group = torch.zeros(T_P + 1, dtype=_I64, device=dev)
+    group[at_head] = s_pix // G
+    pslot = torch.full((T_P + 1,), C, dtype=_I64, device=dev)
+    pslot[at_head] = s_slot
+    return dict(piece_group=group[:T_P], piece_weights=weights[:-1].reshape(T_P, G),
+                piece_slot=pslot[:T_P], num_pieces=pid[-1] + 1)
 
 
 def _build_plan_tiled_lean(ref: torch.Tensor, C: int, P: int, U: int,
@@ -537,6 +589,15 @@ def suggest_tile_u(ref: torch.Tensor, tile: int, max_vertices: int,
     return -(-want // 128) * 128
 
 
+def suggest_pieces(ref: torch.Tensor, max_vertices: int, pack: int = 8,
+                   headroom: float = 1.1) -> int:
+    """Piece capacity: headroom·(pieces of this guide at this capacity and
+    pack), rounded up to a multiple of 4096. Builds one throwaway plan."""
+    plan = build_plan(ref, max_vertices=max_vertices, max_pieces=8, pack=pack)
+    want = max(int(int(plan.num_pieces) * headroom), 4096)
+    return -(-want // 4096) * 4096
+
+
 # ---------------------------------------------------------------------------
 # Apply: splat → blur → slice (linear in src)
 # ---------------------------------------------------------------------------
@@ -556,7 +617,9 @@ def _splat(plan: PermutohedralPlan, src: torch.Tensor) -> torch.Tensor:
 
     The tiled form is one batched (U, P) @ (P, L) product per tile, with
     the source rounded to the blocks' dtype and the products kept in f32
-    (a bf16 `bmm` would round each tile's partials)."""
+    (a bf16 `bmm` would round each tile's partials). The piece form (an
+    untiled plan with piece tables, G·L ≤ 128) gathers one G-pixel row of
+    the source a piece and contracts it with the piece's weights."""
     n, L = src.shape
     acc = torch.promote_types(src.dtype, torch.float32)
     if plan.tile_A is not None:
@@ -565,6 +628,13 @@ def _splat(plan: PermutohedralPlan, src: torch.Tensor) -> torch.Tensor:
         partials = torch.bmm(plan.tile_A.transpose(1, 2).to(acc), s3)
         return _segment_sum(partials.reshape(T * U, L), plan.tile_vid.reshape(-1),
                             plan.capacity, src.dtype)
+    pw = plan.piece_weights
+    if pw is not None and pw.shape[1] * L <= _LANES:
+        T_P, G = pw.shape
+        R = -(-n // G)
+        rows = torch.nn.functional.pad(src, (0, 0, 0, R * G - n)).reshape(R, G, L)
+        contrib = torch.einsum("tg,tgl->tl", pw.to(acc), rows[plan.piece_group].to(acc))
+        return _segment_sum(contrib, plan.piece_slot, plan.capacity, src.dtype)
     contrib = (plan.bary[:, :, None] * src[:, None, :]).to(acc)  # (n, d+1, L)
     return _segment_sum(contrib.reshape(-1, L), plan.slot.reshape(-1), plan.capacity, src.dtype)
 
@@ -603,3 +673,99 @@ def apply_plan(plan: PermutohedralPlan, src: torch.Tensor, reverse: bool = False
     """Filter (n, L) values through a prebuilt plan. Linear in `src`;
     `reverse=True` traverses the blur axes in reverse (the transpose)."""
     return _slice(plan, _blur(plan, _splat(plan, src), reverse))
+
+
+# ---------------------------------------------------------------------------
+# Differentiable filter
+# ---------------------------------------------------------------------------
+
+
+class _PlannedFilter(torch.autograd.Function):
+    """apply_plan(plan, src) with gradients for src and ref. The plan rides
+    on ctx, so its tables are neither saved tensors nor differentiated;
+    `bary`'s dependence on ref is accounted for by the 4-filter identity."""
+
+    @staticmethod
+    def forward(ctx, src, ref, plan):
+        ctx.plan = plan
+        ctx.save_for_backward(src, ref)
+        return apply_plan(plan, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, ref = ctx.saved_tensors
+        plan = ctx.plan
+        grad_src = grad_ref = None
+        if ctx.needs_input_grad[0]:
+            # the forward is linear in src: the transposed filter, exactly
+            grad_src = apply_plan(plan, g, reverse=True)
+        if ctx.needs_input_grad[1]:
+            # W_ij = exp(-‖r_i − r_j‖²/2):
+            #   dL/dr_i = −[s_i r_i (Wg)_i − s_i (W(g⊗r))_i
+            #              + g_i r_i (Ws)_i − g_i (W(s⊗r))_i]
+            # as one filter call of width 2L(d+1) through the same plan
+            n, L = src.shape
+            d = ref.shape[1]
+            gf = g[..., None] * ref[:, None, :]  # (n, L, d)
+            sf = src[..., None] * ref[:, None, :]
+            filtered = apply_plan(plan, torch.cat(
+                [g, gf.reshape(n, L * d), src, sf.reshape(n, L * d)], dim=-1))
+            wg = filtered[:, :L]
+            wgf = filtered[:, L: L + L * d].reshape(n, L, d)
+            ws = filtered[:, L + L * d: 2 * L + L * d]
+            wsf = filtered[:, 2 * L + L * d:].reshape(n, L, d)
+            grad_ref = -(sf * wg[..., None] - src[..., None] * wgf
+                         + gf * ws[..., None] - g[..., None] * wsf).sum(-2)
+        return grad_src, grad_ref, None
+
+
+def lattice_filter_planned(src: torch.Tensor, ref: torch.Tensor,
+                           plan: PermutohedralPlan) -> torch.Tensor:
+    """Filter (n, L) values through a prebuilt plan, differentiable in src
+    and ref. The caller guarantees `plan == build_plan(ref.detach())`."""
+    return _PlannedFilter.apply(src, ref, plan)
+
+
+def lattice_filter(src: torch.Tensor, ref: torch.Tensor, normalize: str = "none",
+                   num_lattices: int = 1, max_vertices: int | None = None) -> torch.Tensor:
+    """Approximate Gaussian filter Σ_j exp(-‖ref_i − ref_j‖²/2)·src_j of
+    (n, L) values over (n, d) features (pre-scaled by 1/σ).
+
+    normalize: 'none' (unnormalized) or 'homogeneous' (divided by the
+      filtered ones channel; gradients flow through the quotient).
+    num_lattices: average k lattices at the fixed rotations of
+      `rotation_matrices` (k× plan and apply)."""
+    if normalize not in ("none", "homogeneous"):
+        raise ValueError(f"unknown normalize mode {normalize!r}")
+    x = src
+    if normalize == "homogeneous":
+        x = torch.cat([src, torch.ones_like(src[:, :1])], dim=-1)
+    acc = None
+    for m, R in enumerate(rotation_matrices(ref.shape[1], num_lattices)):
+        ref_m = ref if m == 0 else ref @ torch.as_tensor(R, dtype=ref.dtype, device=ref.device)
+        plan = build_plan(ref_m.detach(), max_vertices=max_vertices)
+        out_m = lattice_filter_planned(x, ref_m, plan)
+        acc = out_m if acc is None else acc + out_m
+    out = acc / num_lattices if num_lattices > 1 else acc
+    if normalize == "homogeneous":
+        return out[:, :-1] / out[:, -1:].clamp_min(1e-20)
+    return out
+
+
+def lattice_adjacency(src: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """(W − I) @ src, the message-passing operator."""
+    return lattice_filter(src, ref) - src
+
+
+def lattice_filter_batched(srcs: torch.Tensor, refs: torch.Tensor,
+                           normalize: str = "none") -> torch.Tensor:
+    """(B, n, L), (B, n, d) → (B, n, L); each item builds its own plan."""
+    return torch.stack([lattice_filter(s, r, normalize) for s, r in zip(srcs, refs)])
+
+
+def batched_lattice_adjacency(src_imgs: torch.Tensor, guide_imgs: torch.Tensor) -> torch.Tensor:
+    """(B, h, w, L) values, (B, h, w, d) guides → (W − I) @ src per image."""
+    B, h, w, L = src_imgs.shape
+    out = lattice_filter_batched(src_imgs.reshape(B, h * w, L),
+                                 guide_imgs.reshape(B, h * w, guide_imgs.shape[-1]))
+    return out.reshape(B, h, w, L) - src_imgs

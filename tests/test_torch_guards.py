@@ -12,12 +12,15 @@ import pytest
 import torch
 
 import depth_estimation_torch
-from depth_estimation_torch.apps import infer
+from depth_estimation_torch.apps import infer, train_crf, upsample
 from depth_estimation_torch.models import pipeline as TP
+from depth_estimation_torch.models import refiner as TR
 from depth_estimation_torch.ops.cuda import meanfield as K
+from depth_estimation_torch.train import experiments as TE
+from depth_estimation_torch.train.trainer import Trainer
 from depth_estimation_torch.utils import build
 from depth_estimation_torch.utils.device import resolve_device
-from depth_estimation_torch.utils.weights import params_from_jax
+from depth_estimation_torch.utils.weights import load_jax_params, params_from_jax
 
 PKG = pathlib.Path(depth_estimation_torch.__file__).parent
 REPO = PKG.parent
@@ -28,7 +31,14 @@ def _modules():
                   for p in PKG.rglob("*.py"))
 
 
+# the modules of the training slice, which the two checks below must reach
+TRAINING_MODULES = [f"depth_estimation_torch.{m}" for m in (
+    "ops.guided_filter", "models.features", "models.refiner", "train.experiments",
+    "train.trainer", "apps.train_crf", "apps.upsample")]
+
+
 def test_every_module_imports_without_jax():
+    assert set(TRAINING_MODULES) <= set(_modules())
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"for m in {_modules()!r}:\n"
@@ -45,18 +55,43 @@ def test_every_module_imports_without_jax():
 def test_no_file_names_the_jax_package():
     files = [p for p in PKG.rglob("*") if p.is_file() and p.suffix in (".py", ".cu", ".cuh")]
     assert any(p.suffix == ".cu" for p in files)
+    named = {".".join(p.relative_to(REPO).with_suffix("").parts) for p in files}
+    assert set(TRAINING_MODULES) <= named
     for p in files:
         text = p.read_text()
         assert "depth_estimation_tpu" not in text, p
         assert "import jax" not in text and "from jax" not in text, p
 
 
-def test_entry_points_default_to_the_gpu():
+def test_entry_points_default_to_the_gpu(tmp_path):
+    from PIL import Image
+
+    from depth_estimation_torch.utils.io import write_pfm
+
     left = np.random.RandomState(0).rand(32, 32, 3).astype(np.float32)
     cfg = TP.CRFStereoConfig(num_disp=4, niters=1)
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
         return
+    Image.fromarray((left * 255).astype(np.uint8)).save(tmp_path / "l.png")
+    write_pfm(tmp_path / "d.pfm", left[..., 0])
+    no_gpu = [
+        lambda: Trainer(lambda m, b: 0, lambda ps: None),
+        lambda: TE.TrainableDenseCRF(),
+        lambda: TE.train_tsukuba_crf(left, left, left[..., 0], num_steps=1),
+        lambda: TE.train_uncertainty([{"left": left, "right": left, "disparity": left[..., 0]}]),
+        lambda: TE.train_upsampler([{"disp_lowres": left[::2, ::2, 0], "image": left,
+                                     "disparity": left[..., 0]}]),
+        lambda: TR.CRFasRNN(),
+        lambda: load_jax_params(torch.nn.Linear(1, 1, bias=False), {"weight": np.ones((1, 1))}),
+        lambda: train_crf.main(["--left", str(tmp_path / "l.png"), "--right",
+                                str(tmp_path / "l.png"), "--gt", str(tmp_path / "d.pfm")]),
+        lambda: upsample.main(["--disp", str(tmp_path / "d.pfm"), "--image",
+                               str(tmp_path / "l.png")]),
+    ]
+    for call in no_gpu:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TP.crf_stereo_infer(left, left, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -143,3 +178,24 @@ def test_infer_cli_on_cpu(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             infer.main(args[:-3] + ["--fast"])
+
+
+def test_upsample_cli_on_cpu(tmp_path, capsys):
+    from PIL import Image
+
+    from depth_estimation_torch.utils.io import read_pfm, write_pfm
+
+    img = np.random.RandomState(4).rand(32, 48, 3).astype(np.float32)
+    Image.fromarray((img * 255).astype(np.uint8)).save(tmp_path / "img.png")
+    disp = np.full((32, 48), 2.0, np.float32)
+    disp[:, 24:] = 6.0
+    write_pfm(tmp_path / "low.pfm", disp[::4, ::4])
+    write_pfm(tmp_path / "gt.pfm", disp)
+    args = ["--disp", str(tmp_path / "low.pfm"), "--image", str(tmp_path / "img.png"),
+            "--out", str(tmp_path / "up.pfm"), "--gt", str(tmp_path / "gt.pfm"),
+            "--iters", "1", "--radius", "3", "--device", "cpu"]
+    assert upsample.main(args) == 0
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert '"device": "cpu"' in line and "masked_l1" in line
+    up = read_pfm(tmp_path / "up.pfm")
+    assert up.shape == (32, 48) and np.isfinite(up).all()

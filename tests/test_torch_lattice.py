@@ -151,6 +151,11 @@ def test_pinned_packed_mode_that_does_not_fit_raises():
 
 
 def test_pieces_not_ported():
+    """`max_pieces` no longer raises: the plan carries the piece tables
+    and counts its pieces as the JAX package does (tests/test_torch_pieces.py
+    holds the filter through them)."""
     ref, _ = _guide(6, n=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.build_plan(torch.from_numpy(ref), max_pieces=4096)
+    plan = T.build_plan(torch.from_numpy(ref), max_pieces=4096)
+    pj = jax.jit(partial(J.build_plan, max_pieces=4096))(jnp.asarray(ref))
+    assert plan.piece_weights.shape == (4096, 8)
+    assert int(plan.num_pieces) == int(pj.num_pieces)
