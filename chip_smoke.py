@@ -25,14 +25,35 @@ iterations, through both lattice plan paths, then its training path:
      the general untiled plan at the default capacity) on B's pair;
   E. B's pair untiled in float32 with the piece-splat tables
      (`calibrate_capacity(pieces=True)`), held against the same run
-     without them.
+     without them;
+  F. `StereoServer` in A's configuration on 8 pairs (pair i from
+     `RandomState(i)`, contrast 0.5), calibrated on the first frame: each
+     frame against `crf_stereo_infer` with the server's config, vmap mode
+     against loop mode, 40 launches of the fused update a batch,
+     `throughput()` and one profiled batch;
+  G. the distributed code on the one card: a 2-rank probe of whether
+     gloo's point-to-point ops take CUDA tensors (reported, not gated), then
+     a world of 4 ranks on cuda:0 under 'gloo' (NCCL refuses two ranks on
+     one GPU): the halo exchange of a CUDA tensor against slicing, the
+     4-stripe `crf_stereo_infer_tiled` (halo 48) on the card against the
+     same world's CPU run (5e-3 px), and one `Trainer(mesh=...)` step of
+     `CRFasRNN` (float32 blocks, one pair a rank) whose all-reduced
+     gradients are held against rank 0's single-process full batch; the
+     timings of a world that shares one card are no scaling numbers;
+  H. the remaining operators on A's pair, each against the port's CPU run:
+     the spectral embedding and `spectral_segment` (eigenvalues to 1e-3,
+     residuals under the solver's own convergence bound, at least 2
+     segments), `cg_refine_bilateral` of the unary disparity (1e-4),
+     `lsh_gaussian_filter` of the unary probabilities over the flagship
+     guide (1e-5) and `composite_mask_depth` of the 3 ground-truth layers
+     (exact).
 
 It builds the CUDA kernels from `depth_estimation_torch/csrc` (one `nvcc`
 per source, all at once), prints what `ptxas` reports for every kernel
 instantiation (registers, shared memory, spills; more than 128 registers or
 any spill fails), holds each kernel against its plain PyTorch version on
-the card and times both, counts the kernel's launches in each run of A, B
-and E (C and D launch no hand-written kernel, and count none), and checks
+the card and times both, counts the kernel's launches in each run of A, B,
+E and F (C, D, G and H launch no hand-written kernel, and count none), and checks
 each pipeline's disparity against the same pipeline without the kernel on
 the card and against the port's own CPU run (the path the CPU tests hold
 against the JAX package). Any failed check raises. The last lines are the
@@ -76,6 +97,18 @@ STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-4, 1e-3
 # plus an absolute floor for the float32-block gradients: d/d log_s (about
 # 0.01) is a sum that cancels, and two card runs of it differ by ~6e-6
 STEP_GRAD_ATOL = 1e-4
+SERVE_BATCH = 8  # F: pairs a batch
+# G: ranks sharing cuda:0, their backend (NCCL refuses two ranks on one GPU),
+# the tiled stereo's halo (about σp·diag = 0.1·480 px) and the pairs of the
+# data-parallel step (one a rank)
+WORLD, WORLD_BACKEND, TILED_HALO, DP_PAIRS = 4, "gloo", 48, 4
+# H: the operators on the card against their CPU run, max |difference| over
+# max |CPU|: CG's 30 float32 iterations sum in another order; the LSH
+# filter's candidates are the same (float64 hashes) and only its weights round
+CG_RTOL, LSH_RTOL = 1e-4, 1e-5
+# H: a returned eigenpair's residual may exceed the solver's own convergence
+# bound, recomputed here from the returned vectors, by this factor of rounding
+CONVERGED_SLACK = 1.1
 
 
 def log(msg: str) -> None:
@@ -519,6 +552,357 @@ def run_pieces() -> dict:
             "max_pieces": cfg.max_pieces, **{f"{k}_ms": v for k, v in out_ms.items()}}
 
 
+# ---------------------------------------------------------------------------
+# serving, the distributed code on one card, the operators
+# ---------------------------------------------------------------------------
+
+
+def synthetic_batch(n: int, contrast: float):
+    """n pairs, pair i from `make_stereo_pair(RandomState(i), H, W)` at `contrast`."""
+    from depth_estimation_torch.data.synthetic import make_stereo_pair
+
+    lo = 0.5 - contrast / 2
+    pairs = [make_stereo_pair(np.random.RandomState(i), H, W) for i in range(n)]
+    return [np.stack([(lo + contrast * p[k]).astype(np.float32) for p in pairs]) for k in range(3)]
+
+
+def run_serving() -> dict:
+    """F: `StereoServer` on 8 pairs in A's configuration, calibrated on the
+    first frame, held frame by frame against `crf_stereo_infer`."""
+    from depth_estimation_torch.models.pipeline import CRFStereoConfig, crf_stereo_infer
+    from depth_estimation_torch.models.serving import StereoServer
+    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
+
+    lefts, rights, _ = synthetic_batch(SERVE_BATCH, 0.5)
+    cfg = CRFStereoConfig(num_disp=LABELS, niters=NITERS, tile_bf16=True, compute_dtype="bf16",
+                          fused_update=True)
+    server = StereoServer(cfg, device=DEV)
+    fused_energy_update.launches = 0  # the main path: one call, calibration included
+    t0 = time.perf_counter()
+    out = server(lefts, rights)
+    sync(DEV)
+    first_s = time.perf_counter() - t0
+    launches = fused_energy_update.launches
+    c = server.cfg
+    log(f"serving F: first call {first_s:.2f} s (calibration included): max_vertices="
+        f"{c.max_vertices} sort_mode={c.sort_mode} tile_px={c.tile_px} tile_u={c.tile_u} "
+        f"max_pieces={c.max_pieces}; fused_energy_update launches = {launches}")
+    check(launches == SERVE_BATCH * NITERS, f"{launches} launches, want {SERVE_BATCH * NITERS}")
+    check(out.shape == (SERVE_BATCH, H, W) and out.device.type == DEV, "served shape or device")
+    check(bool(torch.isfinite(out).all()), "non-finite served disparity")
+    frame_diffs = []
+    for i in range(SERVE_BATCH):
+        one = crf_stereo_infer(lefts[i], rights[i], c, device=DEV)["disparity"]
+        d = (out[i] - one).abs()
+        frame_diffs.append((float(d.max()), float(d.mean())))
+    log("serving F: |served - crf_stereo_infer| per frame, max/mean px: "
+        + ", ".join(f"{a:.3g}/{b:.3g}" for a, b in frame_diffs))
+    check(all(m <= BF16_MEAN_TOL for _, m in frame_diffs), f"mean over {BF16_MEAN_TOL} px")
+    vmapped = StereoServer(c, batch_mode="vmap", auto_capacity=False, device=DEV)(lefts, rights)
+    dv = (vmapped - out).abs()
+    log(f"serving F: |vmap mode - loop mode| max {float(dv.max()):.3g} px, mean "
+        f"{float(dv.mean()):.3g} px, bit-equal {bool(torch.equal(vmapped, out))}")
+    check(float(dv.mean()) <= BF16_MEAN_TOL, "vmap mode differs from loop mode")
+    stats = server.throughput(lefts, rights, reps=5)
+    log(f"serving F: throughput {stats['frames_per_s']:.2f} frames/s, {stats['ms_per_batch']:.3f} "
+        f"ms a batch of {stats['batch']} (chain_timer, 5 reps), devices {stats['devices']}")
+    busy_ms = profile("serving F (one batch)", lambda: server(lefts, rights))
+    return {"launches": launches, "first_call_s": first_s, **stats, "device_busy_ms": busy_ms,
+            "frame_max_mean_px": frame_diffs, "vmap_max_px": float(dv.max()),
+            **{k: getattr(c, k) for k in ("max_vertices", "sort_mode", "tile_px", "tile_u")}}
+
+
+def _stripe(x: torch.Tensor, mesh):
+    t, lh = mesh.axis_index("tile"), x.shape[0] // mesh.axis_size("tile")
+    return x[t * lh:(t + 1) * lh]
+
+
+def sync(dev: str) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _join(settings: dict) -> None:
+    """A spawned rank takes the spawning process's sizes and device (which
+    a CPU rehearsal changes) and, on a GPU, the one card."""
+    globals().update(settings)
+    if DEV == "cuda":
+        torch.cuda.set_device(0)
+
+
+def _world_rank(rank: int, settings: dict, init_method: str, out_path: str) -> None:
+    """One rank of G's world on cuda:0: the halo exchange of a CUDA tensor,
+    the tiled stereo on the card and on the CPU, one data-parallel step."""
+    from depth_estimation_torch.models.pipeline import CRFStereoConfig
+    from depth_estimation_torch.models.refiner import CRFasRNN
+    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
+    from depth_estimation_torch.parallel.mesh import distributed_init, make_mesh
+    from depth_estimation_torch.parallel.stereo_tiled import crf_stereo_infer_tiled
+    from depth_estimation_torch.parallel.tiling import gather_rows, halo_exchange_rows
+    from depth_estimation_torch.train.trainer import Trainer
+
+    _join(settings)
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed_init(WORLD_BACKEND, init_method=init_method, world_size=WORLD, rank=rank)
+    try:
+        out = {}
+        tiles = make_mesh(data=1, tile=WORLD)
+        x = torch.arange(H * W * 2, dtype=torch.float32, device=DEV).reshape(H, W, 2)
+        t, lh = rank, H // WORLD
+        padded = halo_exchange_rows(_stripe(x, tiles), TILED_HALO, tiles)
+        zeros = torch.zeros(TILED_HALO, W, 2, device=DEV)
+        want = torch.cat([x[t * lh - TILED_HALO:t * lh] if t > 0 else zeros, _stripe(x, tiles),
+                          x[(t + 1) * lh:(t + 1) * lh + TILED_HALO] if t < WORLD - 1 else zeros])
+        check(padded.device == x.device and torch.equal(padded, want), f"rank {rank}: halo exchange")
+
+        left, right, _ = synthetic_pair(0.5)
+        left, right = torch.as_tensor(left), torch.as_tensor(right)
+        cfg = CRFStereoConfig(num_disp=LABELS, niters=NITERS)
+        for dev in (DEV, "cpu"):
+            t0 = time.perf_counter()
+            disp = crf_stereo_infer_tiled(_stripe(left, tiles), _stripe(right, tiles), cfg, tiles,
+                                          halo=TILED_HALO, device=dev)
+            sync(dev)
+            out[f"tiled_{dev}_s"] = time.perf_counter() - t0
+            out[f"tiled_{dev}"] = gather_rows(disp, tiles).cpu()
+
+        data = make_mesh(data=WORLD)
+        batch, kw = dp_batch(DEV)
+        tr = Trainer(dp_loss(kw), lambda ps: torch.optim.Adam(ps, lr=3e-2), mesh=data, device=DEV)
+        state = tr.init(CRFasRNN(backend="lattice", device=DEV))
+        t0 = time.perf_counter()
+        tr.fit(state, [batch], 1)
+        sync(DEV)
+        out["dp_step_s"] = time.perf_counter() - t0
+        out["dp_grads"] = {k: p.grad.cpu() for k, p in state.model.named_parameters()}
+        flat = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()])
+        out["params_every_rank"] = gather_rows(flat[None], data, axis="data").cpu()
+        check(fused_energy_update.launches == 0, f"rank {rank} launched the fused update")
+        if rank == 0:
+            torch.save(out, out_path)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dp_batch(device: str):
+    """G's training batch: DP_PAIRS pairs (images, unary logits, ground
+    truth) and C's plan options with float32 incidence blocks, calibrated
+    on the first pair."""
+    from depth_estimation_torch.models.pipeline import CRFStereoConfig, stereo_unary
+
+    lefts, rights, gts = (torch.as_tensor(a, device=device) for a in synthetic_batch(DP_PAIRS, 0.5))
+    logits = torch.stack([-stereo_unary(lefts[i], rights[i], CRFStereoConfig(num_disp=LABELS))
+                          for i in range(DP_PAIRS)])
+    kw = {**trainable_plan(lefts[0]), "tile_bf16": False}
+    return {"left": lefts, "logits": logits, "gt": gts}, kw
+
+
+def dp_loss(kw: dict):
+    """The mean over a batch's pairs of C's loss."""
+    def loss_fn(model, b):
+        return sum(trainable_loss(model, {k: v[i] for k, v in b.items()}, kw)
+                   for i in range(b["left"].shape[0])) / b["left"].shape[0]
+    return loss_fn
+
+
+def _probe_rank(rank: int, settings: dict, init_method: str, out_dir: str) -> None:
+    """Whether gloo's point-to-point ops take CUDA tensors: one exchange of
+    a CUDA tensor between 2 ranks, the answer written to a file."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    _join(settings)
+    dist.init_process_group("gloo", init_method=init_method, world_size=2, rank=rank,
+                            timeout=timedelta(seconds=30))
+    try:
+        mine = torch.full((4,), float(rank + 1), device=DEV)
+        theirs = torch.zeros(4, device=DEV)
+        try:
+            for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, mine, 1 - rank),
+                                               dist.P2POp(dist.irecv, theirs, 1 - rank)]):
+                req.wait()
+            got = theirs.cpu().tolist()
+            answer = "took them" if got == [float(2 - rank)] * 4 else f"took them, wrong values {got}"
+        except RuntimeError as e:  # the probe reports the refusal; it does not fail
+            answer = f"refused them: {str(e).splitlines()[0][:160]}"
+        with open(f"{out_dir}/probe{rank}.txt", "w") as f:
+            f.write(answer)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world() -> dict:
+    """G: a world of WORLD ranks on cuda:0 under gloo (the halo exchange,
+    the tiled stereo on the card against the CPU, a data-parallel step
+    against rank 0's full batch), after a 2-rank probe of gloo's
+    point-to-point ops on CUDA tensors."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from depth_estimation_torch.models.pipeline import CRFStereoConfig, crf_stereo_infer
+    from depth_estimation_torch.models.refiner import CRFasRNN
+    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
+
+    log(f"world G: backend {WORLD_BACKEND!r}, passed explicitly: {WORLD} ranks share one card "
+        "(cuda:0), and NCCL refuses two ranks on one GPU; gloo moves host memory, so the port "
+        "stages CUDA tensors through host copies")
+    settings = {"H": H, "W": W, "DEV": DEV}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        try:
+            mp.spawn(_probe_rank, args=(settings, f"file://{tmp}/probe_rendezvous", tmp), nprocs=2)
+            answers = [open(f"{tmp}/probe{r}.txt").read() for r in range(2)]
+        except (mp.ProcessExitedException, mp.ProcessRaisedException) as e:  # an answer too
+            answers = [f"a rank died: {str(e).splitlines()[0][:160]}"]
+        log(f"world G: probe, gloo point-to-point on CUDA tensors: {answers} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        fused_energy_update.launches = 0
+        t0 = time.perf_counter()
+        mp.spawn(_world_rank, args=(settings, f"file://{tmp}/rendezvous", f"{tmp}/out.pt"),
+                 nprocs=WORLD)
+        wall = time.perf_counter() - t0
+        out = torch.load(f"{tmp}/out.pt", weights_only=False)
+    log(f"world G: {WORLD} ranks ran in {wall:.1f} s (process start included); the halo "
+        f"exchange of a CUDA tensor matched slicing on every rank")
+
+    left, right, _ = synthetic_pair(0.5)
+    card, cpu = out[f"tiled_{DEV}"], out["tiled_cpu"]
+    d = (card - cpu).abs()
+    untiled = crf_stereo_infer(left, right, CRFStereoConfig(num_disp=LABELS, niters=NITERS),
+                               device=DEV)["disparity"].cpu()
+    interior = (card - untiled).abs()[8:-8]
+    log(f"world G: tiled stereo, halo {TILED_HALO}: card {out[f'tiled_{DEV}_s']:.2f} s, CPU "
+        f"{out['tiled_cpu_s']:.2f} s on rank 0; |card - CPU| max {float(d.max()):.3g} px, mean "
+        f"{float(d.mean()):.3g} px; interior |tiled - untiled| on the card mean "
+        f"{float(interior.mean()):.4f} px, max {float(interior.max()):.3g} px (not gated)")
+    check(card.shape == (H, W) and bool(torch.isfinite(card).all()), "tiled shape or values")
+    check(float(d.max()) <= DISP_ATOL, f"tiled card against CPU over {DISP_ATOL} px")
+
+    batch, kw = dp_batch(DEV)
+    model = CRFasRNN(backend="lattice", device=DEV)
+    dp_loss(kw)(model, batch).backward()
+    full = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    rel = {}
+    for k, g in full.items():
+        got = out["dp_grads"][k]
+        rel[k] = float((got - g).abs().max() / g.abs().max())
+        check(bool(((got - g).abs() <= STEP_GRAD_ATOL + STEP_GRAD_RTOL * g.abs()).all()),
+              f"data-parallel gradient {k} differs from the full batch: {rel}")
+    rows = out["params_every_rank"]
+    same = all(torch.equal(r, rows[0]) for r in rows)
+    log(f"world G: data-parallel step of CRFasRNN on {DP_PAIRS} pairs ({WORLD} ranks, one pair "
+        f"each, f32 blocks) {out['dp_step_s'] * 1e3:.1f} ms on rank 0; all-reduced gradients "
+        f"against rank 0's full batch, relative: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+        + f"; parameters equal on every rank: {same}")
+    check(same, "parameters differ between ranks after the step")
+    check(fused_energy_update.launches == 0, "the parent launched the fused update in G")
+    return {"backend": WORLD_BACKEND, "ranks": WORLD, "wall_s": wall, "probe": answers,
+            "tiled_card_s": out[f"tiled_{DEV}_s"], "tiled_cpu_s": out["tiled_cpu_s"],
+            "tiled_max_px": float(d.max()), "tiled_vs_untiled_interior_mean_px":
+            float(interior.mean()), "dp_step_ms": out["dp_step_s"] * 1e3, "dp_grad_rel": rel}
+
+
+def rayleigh(plan, degree, U):
+    """Rayleigh quotients and residual norms of U's columns under the sym
+    Laplacian, and the bound under which the solver counts them converged
+    (eps·10·n·(θ + ‖Au‖) for A = 2I − L)."""
+    from depth_estimation_torch.ops.spectral import laplacian_matvec
+
+    LU = laplacian_matvec(plan, degree, U, "sym")
+    theta = (U * LU).sum(0) / (U * U).sum(0)
+    resid = torch.linalg.vector_norm(LU - U * theta, dim=0) / torch.linalg.vector_norm(U, dim=0)
+    AU = 2.0 * U - LU
+    bound = (torch.finfo(U.dtype).eps * 10 * U.shape[0]
+             * (2.0 - theta + torch.linalg.vector_norm(AU, dim=0)))
+    return theta.cpu(), resid.cpu(), bound.cpu()
+
+
+def run_operators() -> dict:
+    """H: spectral segmentation, the bilateral CG refinement, the LSH filter
+    and the mask composite on the 288×384 pair, each against the port's
+    CPU run of the same call."""
+    from depth_estimation_torch.crf.guides import stack_guide
+    from depth_estimation_torch.models.maskdepth import composite_mask_depth
+    from depth_estimation_torch.models.pipeline import CRFStereoConfig, stereo_unary
+    from depth_estimation_torch.ops.classical import cg_refine_bilateral
+    from depth_estimation_torch.ops.costvolume import expected_disparity
+    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
+    from depth_estimation_torch.ops.lsh import lsh_gaussian_filter
+    from depth_estimation_torch.ops.permutohedral import build_plan
+    from depth_estimation_torch.ops.spectral import _adjacency, spectral_embedding, spectral_segment
+
+    left_np, right_np, gt_np = synthetic_pair(0.5)
+    out, times = {}, {}
+    fused_energy_update.launches = 0
+
+    def timed(name, dev, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        sync(dev)
+        times[f"{name}_{dev}_s"] = time.perf_counter() - t0
+        return r
+
+    for dev in (DEV, "cpu"):
+        left, right = torch.as_tensor(left_np, device=dev), torch.as_tensor(right_np, device=dev)
+        ref = stack_guide(left, 0.15, 0.08).reshape(H * W, -1)  # spectral_segment's guide
+        U = timed("embedding", dev, lambda: spectral_embedding(ref, 8))
+        plan = build_plan(ref)
+        degree = torch.clamp_min(_adjacency(plan, torch.ones(H * W, 1, device=dev)), 1e-3)
+        out[dev] = {"rayleigh": rayleigh(plan, degree, U)}
+        if dev == DEV:
+            out[dev]["labels"] = timed("segment", dev, lambda: spectral_segment(left_np, device=dev))
+        unary = expected_disparity(-stereo_unary(left, right, CRFStereoConfig(num_disp=LABELS)))
+        out[dev]["cg"] = timed("cg_bilateral", dev, lambda: cg_refine_bilateral(unary, left)).cpu()
+        E0 = stereo_unary(left, right, CRFStereoConfig(num_disp=LABELS)).reshape(H * W, LABELS)
+        guide = stack_guide(left, 0.1, 0.1).reshape(H * W, -1)  # the flagship guide
+        out[dev]["lsh"] = timed("lsh", dev, lambda: lsh_gaussian_filter(
+            torch.softmax(-E0, dim=-1), guide)).cpu()
+        gt = torch.as_tensor(gt_np, device=dev)
+        masks = torch.stack([(gt == v).float() for v in torch.unique(gt)[1:]])
+        out[dev]["masks"] = masks.shape[0]
+        out[dev]["composite"] = timed("composite", dev,
+                                      lambda: composite_mask_depth(left, right, masks)).cpu()
+    check(fused_energy_update.launches == 0, "the operators launched the fused update")
+    log("operators H: seconds, card / CPU: " + ", ".join(
+        f"{k} {times.get(f'{k}_{DEV}_s', float('nan')):.3f} / {times.get(f'{k}_cpu_s', float('nan')):.3f}"
+        for k in ("embedding", "segment", "cg_bilateral", "lsh", "composite")))
+
+    (th, res, bound), (th_cpu, res_cpu, _) = out[DEV]["rayleigh"], out["cpu"]["rayleigh"]
+    labels = out[DEV]["labels"]
+    segments = int(torch.unique(labels).numel())
+    log(f"operators H: spectral embedding, 8 eigenpairs at {H}x{W}: theta "
+        f"{[round(x, 5) for x in th.tolist()]}; |theta card - CPU| max "
+        f"{float((th - th_cpu).abs().max()):.3g}; Rayleigh residuals {[round(x, 4) for x in res.tolist()]} "
+        f"(CPU {[round(x, 4) for x in res_cpu.tolist()]}) against the solver's convergence bound "
+        f"{[round(x, 3) for x in bound.tolist()]}; the JAX package's small-image gates (interior < 5e-2, "
+        f"last < 0.15) {'hold' if res[:-1].max() < 5e-2 and res[-1] < 0.15 else 'do not hold'}; "
+        f"spectral_segment found {segments} segments")
+    check(bool((res < CONVERGED_SLACK * bound).all()),
+          "an eigenpair is not converged by the solver's own test")
+    check(float((th - th_cpu).abs().max()) <= 1e-3, "eigenvalues differ from the CPU run")
+    check(labels.shape == (H, W) and segments >= 2, "fewer than 2 segments")
+
+    for name, rtol in (("cg", CG_RTOL), ("lsh", LSH_RTOL)):
+        a, b = out[DEV][name], out["cpu"][name]
+        err = float((a - b).abs().max() / b.abs().max())
+        log(f"operators H: {name} card against CPU: max |difference| / max |CPU| = {err:.3g}")
+        check(bool(torch.isfinite(a).all()) and err <= rtol, f"{name} differs from the CPU run")
+    comp, comp_cpu = out[DEV]["composite"], out["cpu"]["composite"]
+    log(f"operators H: composite_mask_depth of {out[DEV]['masks']} masks: values "
+        f"{sorted(set(comp.unique().tolist()))}, true disparities "
+        f"{sorted(set(np.unique(gt_np).tolist()))}; equal to the CPU run: {torch.equal(comp, comp_cpu)}")
+    check(torch.equal(comp, comp_cpu), "composite differs from the CPU run")
+    return {"seconds": times, "theta": th.tolist(), "theta_max_diff_cpu":
+            float((th - th_cpu).abs().max()), "rayleigh_residuals": res.tolist(),
+            "segments": segments}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -529,6 +913,7 @@ def main() -> int:
     # plain versions on the card compute float32 products in float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -555,8 +940,12 @@ def main() -> int:
     c = run_trainable_step()
     d = run_train_tsukuba()
     e = run_pieces()
+    f = run_serving()
+    g = run_world()
+    h = run_operators()
     log(json.dumps({"pipelines": {"A": a, "B": b, "E": e}}))
     log(json.dumps({"training": {"C": c, "D": d}}))
+    log(json.dumps({"serving": {"F": f}, "world": {"G": g}, "operators": {"H": h}}))
     log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"geometry": {dt: vars(K.launch_geometry(n, LABELS, elt))
                                  for dt, elt in (("bf16", 2), ("f32", 4))}}))
@@ -569,10 +958,12 @@ def main() -> int:
         **t_bf16, "library_ms": None,
         "us": t_bf16["ms"] * 1e3, "bound_us": t_bf16["bound_ms"] * 1e3,
         "shape": [n, LABELS], "dtype": "bf16", "launches_b": b["launches"],
+        "launches_f": f["launches"],
         "max_abs_err_f32": errs[n, LABELS, torch.float32],
         "f32": t_f32, **t_wide, "yardsticks": yardsticks,
         "design": "a warp per tile of rows, coalesced 16-byte loads, Mu in registers",
     }
+    log(f"chip_smoke: the whole script took {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": [kernel]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,9 +4,13 @@ The PyTorch counterpart of the JAX package beside it, module for module:
 cost volumes (`ops.costvolume`), the permutohedral lattice
 (`ops.permutohedral`), the dense Gaussian oracle (`ops.dense_gaussian`),
 mean-field CRF inference (`crf`), the flagship stereo pipeline
-(`models.pipeline`) and its CLI (`apps.infer`). The fused mean-field
-update is a hand-written CUDA kernel (`csrc/meanfield.cu`, bound in
-`ops.cuda.meanfield`); everything else is PyTorch tensor code.
+(`models.pipeline`) and its CLI (`apps.infer`), the training path
+(`models.refiner`, `train`), batched serving (`models.serving`), the
+multi-process mesh and row-striped tiling (`parallel`), and the remaining
+operators (`ops.spectral`, `ops.classical`, `ops.lsh`, `models.maskdepth`).
+The fused mean-field update is a hand-written CUDA kernel
+(`csrc/meanfield.cu`, bound in `ops.cuda.meanfield`); everything else is
+PyTorch tensor code.
 
 Entry points run on the GPU (`device=None` means "cuda") and raise when
 no GPU is present; pass `device="cpu"` to run the plain PyTorch versions.

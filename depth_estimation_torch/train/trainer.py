@@ -10,8 +10,16 @@
 - `cosine_lr`: cosine decay to zero, equal to
   `optax.cosine_decay_schedule(base, T)` at every step.
 
-Data parallelism (`mesh`) is not ported yet: it comes with
-`torch.distributed` (ROADMAP.md, slice 3).
+Data parallel: pass a `parallel.mesh.Mesh` and every rank runs the same
+program on its shard. Each rank receives the global batch and takes its
+rows of every tensor leaf's leading axis; `init` broadcasts the parameters
+from the 'data' axis' rank 0; after `backward` the gradients are averaged
+over the axis before the optimizer step, so every rank takes the same
+step. The logged loss and `evaluate`'s metrics are means over the ranks.
+Only global rank 0 writes the log and checkpoints; `restore` loads on
+every rank. As in the JAX package, the loss must average over the batch
+(any `...mean()` loss does), so that the mean of the shards' gradients is
+the full batch's.
 """
 from __future__ import annotations
 
@@ -23,7 +31,9 @@ from pathlib import Path
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import Mesh, all_mean_, broadcast_, shard_batch
 from ..utils.device import resolve_device
 
 __all__ = ["TrainState", "Trainer", "cosine_lr"]
@@ -46,14 +56,14 @@ def cosine_lr(base_lr: float, total_steps: int) -> Callable[[int], float]:
     return schedule
 
 
-def _to(batch: Any, dev: torch.device) -> Any:
-    """Tensors of a (nested) batch moved to `dev`."""
+def _map(fn: Callable, batch: Any) -> Any:
+    """`fn` applied to every tensor of a (nested) batch."""
     if isinstance(batch, torch.Tensor):
-        return batch.to(dev)
+        return fn(batch)
     if isinstance(batch, dict):
-        return {k: _to(v, dev) for k, v in batch.items()}
+        return {k: _map(fn, v) for k, v in batch.items()}
     if isinstance(batch, (list, tuple)):
-        return type(batch)(_to(v, dev) for v in batch)
+        return type(batch)(_map(fn, v) for v in batch)
     return batch
 
 
@@ -66,18 +76,16 @@ class Trainer:
       metrics_fn: optional (model, batch) → dict of scalars, for evaluation.
       log_dir: where `train_log.jsonl` and `checkpoints/` go.
       lr_schedule: optional step ↦ learning rate (e.g. `cosine_lr`).
-      mesh: data parallelism; not ported yet (raises).
+      mesh: optional `parallel.mesh.Mesh` with a 'data' axis: data-parallel
+        updates (see the module docstring).
       device: where the model and batches go (None: the GPU).
     """
 
     def __init__(self, loss_fn: Callable, make_optimizer: Callable,
                  metrics_fn: Callable | None = None, log_dir: str | None = None,
                  log_every: int = 10, lr_schedule: Callable[[int], float] | None = None,
-                 mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training is not ported yet: it comes with "
-                "torch.distributed (ROADMAP.md, slice 3)")
+                 mesh: Mesh | None = None, device=None):
+        self.mesh = mesh
         self.loss_fn = loss_fn
         self.make_optimizer = make_optimizer
         self.metrics_fn = metrics_fn
@@ -86,8 +94,25 @@ class Trainer:
         self.lr_schedule = lr_schedule
         self.device = resolve_device(device)
 
+    @property
+    def _writes(self) -> bool:
+        """Whether this rank writes the log and checkpoints."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _place(self, batch):
+        """This rank's shard of the batch (the whole batch without a mesh),
+        on the device."""
+        if self.mesh is not None:
+            batch = _map(lambda x: shard_batch(x, self.mesh) if x.ndim >= 1 else x, batch)
+        return _map(lambda x: x.to(self.device), batch)
+
+    def _mean(self, values: list[torch.Tensor]) -> list[torch.Tensor]:
+        return values if self.mesh is None else all_mean_(values, self.mesh)
+
     def init(self, model: torch.nn.Module) -> TrainState:
         model = model.to(self.device)
+        if self.mesh is not None:
+            broadcast_(list(model.parameters()) + list(model.buffers()), self.mesh)
         return TrainState(model, self.make_optimizer(model.parameters()), 0)
 
     def _update(self, state: TrainState, batch) -> float:
@@ -95,11 +120,12 @@ class Trainer:
             for group in state.optimizer.param_groups:
                 group["lr"] = self.lr_schedule(state.step)
         state.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(state.model, _to(batch, self.device))
+        loss = self.loss_fn(state.model, self._place(batch))
         loss.backward()
+        self._mean([p.grad for p in state.model.parameters() if p.grad is not None])
         state.optimizer.step()
         state.step += 1
-        return loss.item()
+        return self._mean([loss.detach()])[0].item()
 
     def fit(self, state: TrainState, batches, num_steps: int, eval_batches=None,
             eval_every: int = 100) -> TrainState:
@@ -133,15 +159,18 @@ class Trainer:
         totals, count = {}, 0
         with torch.no_grad():
             for batch in batches:
-                for k, v in self.metrics_fn(state.model, _to(batch, self.device)).items():
+                for k, v in self.metrics_fn(state.model, self._place(batch)).items():
                     totals[k] = totals.get(k, 0.0) + float(v)
                 count += 1
-        means = {k: v / max(count, 1) for k, v in totals.items()}
+        names = sorted(totals)
+        local = torch.tensor([totals[k] / max(count, 1) for k in names], dtype=torch.float64,
+                             device=self.device)
+        means = dict(zip(names, self._mean([local])[0].tolist()))
         self._log({"step": state.step, "eval": means})
         return means
 
     def _log(self, record: dict) -> None:
-        if self.log_dir:
+        if self.log_dir and self._writes:
             self.log_dir.mkdir(parents=True, exist_ok=True)
             with open(self.log_dir / "train_log.jsonl", "a") as f:
                 f.write(json.dumps(record) + "\n")
@@ -152,10 +181,15 @@ class Trainer:
         return self.log_dir / "checkpoints" / f"{name}.pt"
 
     def save(self, state: TrainState, name: str = "latest") -> None:
+        """Rank 0 writes; with a mesh every rank waits for it, so that a
+        `restore` that follows finds the file."""
         path = self._path(name)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                    "step": state.step}, path)
+        if self._writes:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            torch.save({"model": state.model.state_dict(),
+                        "optimizer": state.optimizer.state_dict(), "step": state.step}, path)
+        if self.mesh is not None and self.mesh.backend is not None:
+            dist.barrier()
 
     def restore(self, template: TrainState, name: str = "latest") -> TrainState:
         """Load a checkpoint into `template`'s model and optimizer."""

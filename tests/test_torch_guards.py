@@ -12,14 +12,20 @@ import pytest
 import torch
 
 import depth_estimation_torch
-from depth_estimation_torch.apps import infer, train_crf, upsample
+from depth_estimation_torch.apps import infer, segment, train_crf, upsample
 from depth_estimation_torch.models import pipeline as TP
 from depth_estimation_torch.models import refiner as TR
+from depth_estimation_torch.models.serving import StereoServer
+from depth_estimation_torch.ops.spectral import spectral_segment
+from depth_estimation_torch.parallel.mesh import make_mesh
+from depth_estimation_torch.parallel.stereo_tiled import crf_stereo_infer_tiled
 from depth_estimation_torch.ops.cuda import meanfield as K
 from depth_estimation_torch.train import experiments as TE
 from depth_estimation_torch.train.trainer import Trainer
 from depth_estimation_torch.utils import build
 from depth_estimation_torch.utils.device import resolve_device
+from depth_estimation_torch.utils.profiling import StageTimer
+from depth_estimation_torch.utils.timing import chain_timer, loop_timer
 from depth_estimation_torch.utils.weights import load_jax_params, params_from_jax
 
 PKG = pathlib.Path(depth_estimation_torch.__file__).parent
@@ -31,14 +37,18 @@ def _modules():
                   for p in PKG.rglob("*.py"))
 
 
-# the modules of the training slice, which the two checks below must reach
-TRAINING_MODULES = [f"depth_estimation_torch.{m}" for m in (
+# the modules of the training slice and of the serving, multi-device and
+# operator slice, which the two checks below must reach
+SLICE_MODULES = [f"depth_estimation_torch.{m}" for m in (
     "ops.guided_filter", "models.features", "models.refiner", "train.experiments",
-    "train.trainer", "apps.train_crf", "apps.upsample")]
+    "train.trainer", "apps.train_crf", "apps.upsample",
+    "parallel.mesh", "parallel.tiling", "parallel.stereo_tiled", "models.serving",
+    "models.maskdepth", "ops.spectral", "ops.classical", "ops.lsh", "apps.segment", "config",
+    "utils.timing", "utils.profiling", "utils.memory")]
 
 
 def test_every_module_imports_without_jax():
-    assert set(TRAINING_MODULES) <= set(_modules())
+    assert set(SLICE_MODULES) <= set(_modules())
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"for m in {_modules()!r}:\n"
@@ -56,7 +66,7 @@ def test_no_file_names_the_jax_package():
     files = [p for p in PKG.rglob("*") if p.is_file() and p.suffix in (".py", ".cu", ".cuh")]
     assert any(p.suffix == ".cu" for p in files)
     named = {".".join(p.relative_to(REPO).with_suffix("").parts) for p in files}
-    assert set(TRAINING_MODULES) <= named
+    assert set(SLICE_MODULES) <= named
     for p in files:
         text = p.read_text()
         assert "depth_estimation_tpu" not in text, p
@@ -88,6 +98,13 @@ def test_entry_points_default_to_the_gpu(tmp_path):
                                 str(tmp_path / "l.png"), "--gt", str(tmp_path / "d.pfm")]),
         lambda: upsample.main(["--disp", str(tmp_path / "d.pfm"), "--image",
                                str(tmp_path / "l.png")]),
+        lambda: StereoServer(cfg),
+        lambda: crf_stereo_infer_tiled(left, left, cfg, make_mesh()),
+        lambda: spectral_segment(left),
+        lambda: segment.main(["--image", str(tmp_path / "l.png")]),
+        lambda: StageTimer(),
+        lambda: chain_timer(lambda acc: acc),
+        lambda: loop_timer(lambda acc: acc),
     ]
     for call in no_gpu:
         with pytest.raises(RuntimeError, match="no CUDA device"):

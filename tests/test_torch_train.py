@@ -1,35 +1,34 @@
 """The PyTorch port's training path against the JAX package on the CPU:
 `TrainableDenseCRF` takes the same Adam steps as the JAX package's optax
 loop from carried-across params, the experiments train, the `Trainer`
-fits and checkpoints like the JAX one, `cosine_lr` equals optax's
-schedule, and `apps.train_crf` runs with --device cpu."""
+fits and checkpoints like the JAX one, its data-parallel step on a 2-rank
+`gloo` world of spawned CPU processes matches the full batch and the JAX
+`Trainer` on an 8-device mesh, `cosine_lr` equals optax's schedule, and
+`apps.train_crf` runs with --device cpu.
+
+The ranks import this module, so JAX is imported inside the tests only."""
 import json
 
-import jax
-import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from depth_estimation_torch.apps import train_crf
 from depth_estimation_torch.crf.guides import pixel_coords
 from depth_estimation_torch.data.synthetic import make_stereo_pair
 from depth_estimation_torch.ops.costvolume import cost_volume, expected_disparity
+from depth_estimation_torch.parallel.mesh import distributed_init, make_mesh
+from depth_estimation_torch.parallel.tiling import gather_rows
 from depth_estimation_torch.train import experiments as TE
 from depth_estimation_torch.train.metrics import masked_mse
 from depth_estimation_torch.ops.permutohedral import simplex_embed
 from depth_estimation_torch.train.trainer import Trainer, cosine_lr
 from depth_estimation_torch.utils.weights import load_jax_params
-from depth_estimation_tpu.crf.guides import pixel_coords as j_pixel_coords
-from depth_estimation_tpu.models.features import random_features
-from depth_estimation_tpu.ops.costvolume import cost_volume as j_cost_volume
-from depth_estimation_tpu.ops.costvolume import expected_disparity as j_expected_disparity
-from depth_estimation_tpu.train import experiments as JE
-from depth_estimation_tpu.train import trainer as JT
-from depth_estimation_tpu.train.metrics import masked_mse as j_masked_mse
 
 STEP_RTOL = 1e-4  # loss and every parameter, after each Adam step
+DATA = 2  # ranks of the data-parallel world
 
 
 def _pair(h=40, w=60, seed=0):
@@ -45,6 +44,17 @@ def test_trainable_crf_adam_steps_match_optax(dt, param_rtol):
     gradient by its own running scale, so the proj_b step (a sum of ∂ref
     over all pixels) carries a ~1e-3 relative float32 error. The guides'
     lattice keys are the same in both packages before every step."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from depth_estimation_tpu.crf.guides import pixel_coords as j_pixel_coords
+    from depth_estimation_tpu.models.features import random_features
+    from depth_estimation_tpu.ops.costvolume import cost_volume as j_cost_volume
+    from depth_estimation_tpu.ops.costvolume import expected_disparity as j_expected_disparity
+    from depth_estimation_tpu.train import experiments as JE
+    from depth_estimation_tpu.train.metrics import masked_mse as j_masked_mse
+
     left, right, gt = (x.astype(dt) for x in _pair(24, 32))
     L, niters = 8, 2
     jdt = jnp.float64 if dt == np.float64 else jnp.float32
@@ -132,6 +142,8 @@ def test_train_upsampler_matches_jax():
     """The upsampler draws nothing at random, so the two packages start
     from the same parameters and must take the same steps (1e-3: the
     float32 guided filter, tests/test_torch_refiner.py)."""
+    from depth_estimation_tpu.train import experiments as JE
+
     rs = np.random.RandomState(1)
     h, w = 32, 48
     disp = np.full((h, w), 2.0, np.float32)
@@ -155,6 +167,11 @@ def test_train_uncertainty_runs():
 
 
 def test_trainer_fits_like_the_jax_trainer(tmp_path):
+    import jax.numpy as jnp
+    import optax
+
+    from depth_estimation_tpu.train import trainer as JT
+
     for k in ("jax", "torch"):
         (tmp_path / k).mkdir()
     rng = np.random.RandomState(0)
@@ -193,8 +210,125 @@ def test_trainer_checkpoint_roundtrip_and_eval(tmp_path):
     assert restored.optimizer.state_dict()["state"][0]["step"] == 3
     log = (tmp_path / "train_log.jsonl").read_text().splitlines()
     assert any("eval" in json.loads(x) for x in log)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        Trainer(lambda m, b: 0, lambda ps: None, mesh=object(), device="cpu")
+
+
+# --- data parallelism: a 2-rank world, spawned once for the file -----------
+
+MLP_X = np.random.RandomState(3).randn(32, 4)  # float64: the grads agree to 1e-6
+MLP_Y = np.random.RandomState(4).randn(32)
+LSQ_X = np.random.RandomState(0).randn(32, 3).astype(np.float32)
+LSQ_Y = LSQ_X @ np.array([2.0, -1.0, 0.5], np.float32)
+
+
+def _mlp(seed: int) -> torch.nn.Module:
+    g = torch.Generator().manual_seed(seed)
+    model = torch.nn.Sequential(torch.nn.Linear(4, 8), torch.nn.Tanh(),
+                                torch.nn.Linear(8, 1)).double()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, dtype=p.dtype))
+    return model
+
+
+def _sq_loss(m, b):
+    return ((m(b[0])[:, 0] - b[1]) ** 2).mean()
+
+
+def _lsq_trainer(log_dir, mesh=None) -> Trainer:
+    return Trainer(_sq_loss, lambda ps: torch.optim.Adam(ps, lr=0.1),
+                   metrics_fn=lambda m, b: {"mse": _sq_loss(m, b)}, log_dir=str(log_dir),
+                   log_every=1, mesh=mesh, device="cpu")
+
+
+def _zeros_linear() -> torch.nn.Module:
+    model = torch.nn.Linear(3, 1, bias=False)
+    torch.nn.init.zeros_(model.weight)
+    return model
+
+
+def _ranks(rank, out_dir, init_method):
+    torch.set_num_threads(1)
+    assert distributed_init("gloo", init_method=init_method, world_size=DATA, rank=rank)
+    try:
+        mesh = make_mesh(data=DATA)
+        out = {}
+        # every rank starts from other parameters: init broadcasts rank 0's
+        tr = Trainer(_sq_loss, lambda ps: torch.optim.SGD(ps, lr=0.0), mesh=mesh, device="cpu")
+        state = tr.init(_mlp(seed=rank))
+        out["mlp_init"] = {k: v.clone() for k, v in state.model.state_dict().items()}
+        tr.fit(state, [(torch.from_numpy(MLP_X), torch.from_numpy(MLP_Y))], 1)
+        out["mlp_grads"] = [p.grad.clone() for p in state.model.parameters()]
+
+        tr = _lsq_trainer(f"{out_dir}/log", mesh)
+        model = _zeros_linear()
+        batch = (torch.from_numpy(LSQ_X), torch.from_numpy(LSQ_Y))
+        state = tr.fit(tr.init(model), [batch], 1, eval_batches=[batch], eval_every=1)
+        out["w"] = model.weight.detach().clone()
+        out["w_every_rank"] = gather_rows(out["w"], mesh, axis="data")
+        tr.save(state)
+        restored = tr.restore(tr.init(_zeros_linear()))
+        out["restored"] = gather_rows(restored.model.weight.detach(), mesh, axis="data")
+        out["restored_step"] = restored.step
+        if rank == 0:
+            torch.save(out, f"{out_dir}/out.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    d = tmp_path_factory.mktemp("world")
+    mp.spawn(_ranks, args=(str(d), f"file://{d}/rendezvous"), nprocs=DATA, join=True)
+    return d, torch.load(d / "out.pt", weights_only=False)
+
+
+def test_data_parallel_gradients_match_the_full_batch(world):
+    """The all-reduced gradients of the two shards are the single-process
+    gradients of the whole batch, from rank 0's parameters."""
+    _, out = world
+    model = _mlp(seed=0)
+    for k, v in model.state_dict().items():
+        assert torch.equal(out["mlp_init"][k], v), k
+    assert not torch.equal(_mlp(seed=1)[0].weight, model[0].weight)
+    _sq_loss(model, (torch.from_numpy(MLP_X), torch.from_numpy(MLP_Y))).backward()
+    for got, p in zip(out["mlp_grads"], model.parameters()):
+        torch.testing.assert_close(got, p.grad, rtol=1e-6, atol=1e-12)
+
+
+def test_data_parallel_step_matches_the_jax_trainer(world, tmp_path):
+    """One Adam step of least squares: the 2-rank port against the JAX
+    `Trainer` on an 8-device data mesh, on the logged loss, the evaluation
+    and the parameters; rank 0 alone wrote the log."""
+    import jax.numpy as jnp
+    import optax
+
+    from depth_estimation_tpu.parallel.mesh import make_mesh as j_make_mesh
+    from depth_estimation_tpu.train import trainer as JT
+
+    d, out = world
+    jt = JT.Trainer(lambda p, b: jnp.mean((b[0] @ p["w"] - b[1]) ** 2), optax.adam(0.1),
+                    metrics_fn=lambda p, b: {"mse": jnp.mean((b[0] @ p["w"] - b[1]) ** 2)},
+                    log_dir=str(tmp_path), log_every=1, mesh=j_make_mesh(data=8))
+    batch = (jnp.asarray(LSQ_X), jnp.asarray(LSQ_Y))
+    js = jt.fit(jt.init({"w": jnp.zeros(3, jnp.float32)}), [batch], 1, eval_batches=[batch],
+                eval_every=1)
+    np.testing.assert_allclose(out["w"].numpy()[0], np.asarray(js.params["w"]), rtol=1e-5,
+                               atol=1e-5)
+    logs = [[json.loads(x) for x in (p / "train_log.jsonl").read_text().splitlines()]
+            for p in (tmp_path, d / "log")]
+    assert [sorted(r) for r in logs[0]] == [sorted(r) for r in logs[1]]
+    (j_step, j_eval), (t_step, t_eval) = logs
+    assert t_step["step"] == j_step["step"] == 1
+    np.testing.assert_allclose(t_step["loss"], j_step["loss"], rtol=1e-5)
+    np.testing.assert_allclose(t_eval["eval"]["mse"], j_eval["eval"]["mse"], rtol=1e-5)
+
+
+def test_data_parallel_parameters_equal_on_every_rank(world):
+    d, out = world
+    assert out["w_every_rank"].shape == (DATA, 3)
+    assert all(torch.equal(row, out["w"][0]) for row in out["w_every_rank"])
+    assert (d / "log" / "checkpoints" / "latest.pt").exists()
+    assert torch.equal(out["restored"], out["w_every_rank"]) and out["restored_step"] == 1
 
 
 def test_trainer_saves_a_checkpoint_on_interrupt(tmp_path):
@@ -216,6 +350,8 @@ def test_trainer_saves_a_checkpoint_on_interrupt(tmp_path):
 
 
 def test_cosine_lr_equals_optax():
+    from depth_estimation_tpu.train import trainer as JT
+
     for base, T in ((1.0, 100), (3e-2, 7), (0.5, 1), (0.1, 0)):
         ours, theirs = cosine_lr(base, T), JT.cosine_lr(base, T)
         for step in range(0, max(T, 1) + 3):
