@@ -46,14 +46,34 @@ iterations, through both lattice plan paths, then its training path:
      segments), `cg_refine_bilateral` of the unary disparity (1e-4),
      `lsh_gaussian_filter` of the unary probabilities over the flagship
      guide (1e-5) and `composite_mask_depth` of the 3 ground-truth layers
-     (exact).
+     (exact);
+  I. detection inference at full width: `MaskRCNN()` at its defaults (81
+     classes, ResNet-50 with GroupNorm, FPN 256, 256 proposals, 64
+     detections, random weights from a seeded generator) on one 800×1024
+     shapes image: the first call, the warm call (median of 10, CUDA
+     events) and one profile; then every stage against the port's CPU run
+     on the card's input to that stage (pyramid, RPN logits and deltas,
+     box-head scores and deltas, mask logits to 1e-3 of the CPU's scale;
+     the proposal and detection picks in order until the first rounding
+     flip, a score gap or an IoU's distance from the NMS threshold under
+     1e-4); and one `detect_augmented` with hflip;
+  J. detection training at the width of the repo's recorded run
+     (DETECT_SCALED.json: blocks (2, 2, 2, 2), FPN 128) on 128×128 shapes
+     with masks: the first step on the card against the CPU given the
+     card's proposals, its loss in float32 and float64 to 1e-4, and the
+     card's float64 and float32 gradients against the CPU's float64 ones
+     to C's tolerances (the CPU's own float32 backward is percents off its
+     float64 one, so the float32 runs of card and CPU are compared only in
+     print), 2 warm-up and 10 timed float32 Adam steps, one profile,
+     `evaluate_detection` on 4 held-out items (mAP printed, not gated:
+     random init) and 3 steps of `train_detection_shapes`.
 
 It builds the CUDA kernels from `depth_estimation_torch/csrc` (one `nvcc`
 per source, all at once), prints what `ptxas` reports for every kernel
 instantiation (registers, shared memory, spills; more than 128 registers or
 any spill fails), holds each kernel against its plain PyTorch version on
 the card and times both, counts the kernel's launches in each run of A, B,
-E and F (C, D, G and H launch no hand-written kernel, and count none), and checks
+E and F (C, D, G, H, I and J launch no hand-written kernel, and count none), and checks
 each pipeline's disparity against the same pipeline without the kernel on
 the card and against the port's own CPU run (the path the CPU tests hold
 against the JAX package). Any failed check raises. The last lines are the
@@ -109,6 +129,21 @@ CG_RTOL, LSH_RTOL = 1e-4, 1e-5
 # H: a returned eigenpair's residual may exceed the solver's own convergence
 # bound, recomputed here from the returned vectors, by this factor of rounding
 CONVERGED_SLACK = 1.1
+# I: `MaskRCNN()` at its defaults on one image at Detectron's 800-pixel test
+# scale. Each stage on the card against the port's CPU run of that stage on
+# the card's input to it: max |difference| over max |CPU| (float32 sums in
+# another order, through up to 50 conv+GN layers), and in box coordinates
+DET_H, DET_W = 800, 1024
+DET_RTOL, DET_BOX_ATOL = 1e-3, 0.05
+# I: a ranked pick (a proposal, a detection) may differ from the CPU's only
+# where a rounding can flip it: a score gap, or an IoU's distance from the
+# NMS threshold, under this
+DET_FLIP_TOL = 1e-4
+# J: training at the width of the repo's recorded detection run
+# (DETECT_SCALED.json) on 128×128 shapes images with masks, 4 held out
+J_SIZE, J_ITEMS, J_HOLDOUT = 128, 8, 4
+J_MODEL = dict(num_classes=4, blocks=(2, 2, 2, 2), fpn_dim=128, num_proposals=32,
+               num_detections=8, score_thresh=-1.0)
 
 
 def log(msg: str) -> None:
@@ -903,6 +938,304 @@ def run_operators() -> dict:
             "segments": segments}
 
 
+# ---------------------------------------------------------------------------
+# detection: inference at full width, training at the recorded run's width
+# ---------------------------------------------------------------------------
+
+
+def rel_err(card: torch.Tensor, cpu: torch.Tensor) -> float:
+    card, cpu = card.detach().double().cpu(), cpu.detach().double().cpu()
+    return float((card - cpu).abs().max() / cpu.abs().max().clamp_min(1e-30))
+
+
+def gate(tag: str, name: str, card, cpu, errs: dict, tol: float = DET_RTOL) -> None:
+    errs[name] = e = rel_err(card, cpu)
+    log(f"{tag}: {name}: max |card - CPU| / max |CPU| = {e:.3g} (tolerance {tol:g})")
+    check(e <= tol, f"{tag}: {name} differs from the CPU run by {e}")
+
+
+def _nearest_iou_to(thr: float, box: torch.Tensor, earlier: torch.Tensor) -> float:
+    from depth_estimation_torch.ops.detection import iou_matrix
+
+    if earlier.shape[0] == 0:
+        return float("inf")
+    return float((iou_matrix(box[None].double(), earlier.double())[0] - thr).abs().min())
+
+
+def compare_picks(tag: str, card: dict, cpu: dict, thr: float) -> dict:
+    """Two ranked pick lists from the same inputs, row by row: index (or
+    class), validity, score and box must agree until the first rounding
+    flip, a row whose two picks are within DET_FLIP_TOL in score, or whose
+    IoU against an earlier pick of its class lies within DET_FLIP_TOL of
+    the NMS threshold `thr`; any other difference fails. Returns the
+    agreeing prefix and the largest score and box differences in it."""
+    n = card["valid"].shape[0]
+    worst_s = worst_b = 0.0
+    for i in range(n):
+        va, vb = bool(card["valid"][i]), bool(cpu["valid"][i])
+        same_pick = bool(card["key"][i] == cpu["key"][i])
+        ds = abs(float(card["scores"][i]) - float(cpu["scores"][i]))
+        db = float((card["boxes"][i] - cpu["boxes"][i]).abs().max())
+        if va == vb and (not va or (same_pick and ds <= DET_FLIP_TOL and db <= DET_BOX_ATOL)):
+            if va:
+                worst_s, worst_b = max(worst_s, ds), max(worst_b, db)
+            continue
+        near = min(_nearest_iou_to(thr, side["boxes"][i],
+                                   cpu["boxes"][:i][cpu["cls"][:i] == side["cls"][i]])
+                   for side in (card, cpu))
+        log(f"{tag}: first difference at row {i} of {n}: score gap {ds:.3g}, nearest IoU to the "
+            f"threshold {thr} off by {near:.3g} (flip tolerance {DET_FLIP_TOL:g})")
+        check(ds <= DET_FLIP_TOL or near <= DET_FLIP_TOL,
+              f"{tag}: row {i} differs by more than a rounding flip")
+        return {"agree": i, "of": n, "max_score_diff": worst_s, "max_box_diff_px": worst_b}
+    return {"agree": n, "of": n, "max_score_diff": worst_s, "max_box_diff_px": worst_b}
+
+
+def proposal_picks(model, rpn: dict, h: int, w: int) -> dict:
+    """The RPN's choice of anchors, recomputed from its outputs."""
+    from depth_estimation_torch.ops.detection import clip_boxes, decode_boxes
+
+    boxes = clip_boxes(decode_boxes(rpn["anchors"], rpn["rpn_deltas"]), h, w)
+    idx, valid = model.select_proposals(boxes, rpn["rpn_scores"])
+    idx, valid = idx.cpu(), valid.cpu()
+    return {"key": idx, "valid": valid, "scores": rpn["rpn_scores"].cpu()[idx],
+            "boxes": boxes.cpu()[idx], "cls": torch.zeros_like(idx)}
+
+
+def host_syncs(fn) -> list[str]:
+    """The warnings of `torch.cuda.set_sync_debug_mode('warn')` during one
+    run of `fn`: every operation that made the host wait for the card."""
+    import warnings
+
+    if DEV != "cuda":
+        fn()
+        return []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own notice ("a prototype feature ...") is no sync
+    return [str(w.message) for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def run_detection() -> dict:
+    """I: `MaskRCNN()` on one 800×1024 image: first and warm calls, a
+    profile, every stage against the port's CPU run on the card's input to
+    that stage, and one `detect_augmented` with hflip."""
+    from depth_estimation_torch.data.shapes import ShapesDetection
+    from depth_estimation_torch.models.detection.rcnn import MaskRCNN
+    from depth_estimation_torch.models.detection.tta import detect_augmented
+    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
+
+    tag = f"detection I ({DET_H}x{DET_W})"
+    img = ShapesDetection(num_items=1, h=DET_H, w=DET_W, max_shapes=3, seed=0)[0]["image"]
+    image = torch.as_tensor(img.astype(np.float32), device=DEV)
+    t0 = time.perf_counter()
+    model = MaskRCNN(generator=torch.Generator().manual_seed(0), device=DEV).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{tag}: MaskRCNN() built with {n_params} parameters in {time.perf_counter() - t0:.2f} s")
+    fused_energy_update.launches = 0  # the main path: one call
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out = model(image)
+        sync(DEV)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = fused_energy_update.launches
+        model(image)
+        syncs = host_syncs(lambda: model(image))
+        ms = median_ms(lambda: model(image), 10)
+        busy_ms = profile(tag, lambda: model(image), top=12)
+    log(f"{tag}: host syncs in one warm call: "
+        + (f"{len(syncs)}, the first: {syncs[0][:160]}" if syncs else "0"))
+    log(f"{tag}: first call {first_ms:.3f} ms, warm {ms:.3f} ms (median of 10, CUDA events); "
+        f"{int(out['valid'].sum())} valid detections, {int(out['proposal_valid'].sum())} valid "
+        f"proposals; fused_energy_update launches = {launches}")
+    check(launches == 0, "detection launched the fused update")
+    D, P, K = model.num_detections, model.num_proposals, model.num_classes
+    check(out["boxes"].shape == (D, 4) and out["masks"].shape == (D, 28, 28)
+          and out["proposals"].shape == (P, 4) and out["mask_logits"].shape == (D, 28, 28, K),
+          "detection output shapes")
+    check(all(bool(torch.isfinite(out[k]).all()) for k in ("boxes", "scores", "masks",
+                                                            "proposals", "cls_scores")),
+          "non-finite detection outputs")
+
+    cpu_model = MaskRCNN(device="cpu").eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    errs = {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        feats = model.features(image)
+        feats_cpu = cpu_model.features(image.cpu())
+        for lvl, (a, b) in enumerate(zip(feats, feats_cpu)):
+            gate(tag, f"P{lvl + 2} {tuple(a.shape[-2:])}", a, b, errs)
+        feats_in = [f.cpu() for f in feats]
+        rpn = model.rpn(feats, DET_H, DET_W)
+        rpn_cpu = cpu_model.rpn(feats_in, DET_H, DET_W)
+        for k in ("rpn_logits", "rpn_deltas"):
+            gate(tag, k, rpn[k], rpn_cpu[k], errs)
+        props = compare_picks(f"{tag}: proposals", proposal_picks(model, rpn, DET_H, DET_W),
+                              proposal_picks(cpu_model, rpn_cpu, DET_H, DET_W),
+                              model.rpn_nms_thresh)
+        roi = model.roi_heads(feats, rpn["proposals"], rpn["proposal_valid"], DET_H, DET_W)
+        roi_cpu = cpu_model.roi_heads(feats_in, rpn["proposals"].cpu(),
+                                      rpn["proposal_valid"].cpu(), DET_H, DET_W)
+        for k in ("cls_scores", "cls_deltas"):
+            gate(tag, k, roi[k], roi_cpu[k], errs)
+        dets = compare_picks(
+            f"{tag}: detections",
+            *({"key": r["classes"].cpu(), "cls": r["classes"].cpu(), "valid": r["valid"].cpu(),
+               "scores": r["scores"].cpu(), "boxes": r["boxes"].cpu()} for r in (roi, roi_cpu)),
+            model.det_nms_thresh)
+        n = dets["agree"]
+        check(n > 0, "no detection agrees with the CPU run")
+        gate(tag, f"mask_logits of the {n} agreeing detections", roi["mask_logits"][:n],
+             roi_cpu["mask_logits"][:n], errs)
+        stages_s = time.perf_counter() - t0
+    log(f"{tag}: proposals agree with the CPU's on {props['agree']} of {props['of']} (score "
+        f"{props['max_score_diff']:.3g}, box {props['max_box_diff_px']:.3g} px), detections on "
+        f"{n} of {dets['of']} (score {dets['max_score_diff']:.3g}, box "
+        f"{dets['max_box_diff_px']:.3g} px); stage checks {stages_s:.1f} s")
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        aug = detect_augmented(model, image, hflip=True)
+        sync(DEV)
+        tta_ms = (time.perf_counter() - t0) * 1e3
+    check(aug["boxes"].shape == (D, 4) and aug["scores"].shape == (D,)
+          and bool(torch.isfinite(aug["boxes"]).all()) and bool(torch.isfinite(aug["scores"]).all()),
+          "detect_augmented shapes or values")
+    log(f"{tag}: detect_augmented (identity + hflip) {tta_ms:.3f} ms host clock, "
+        f"{int(aug['valid'].sum())} valid merged detections")
+    return {"first_ms": first_ms, "ms": ms, "device_busy_ms": busy_ms, "launches_k1": launches,
+            "host_syncs": len(syncs),
+            "parameters": n_params, "errors": errs, "proposals": props, "detections": dets,
+            "tta_ms": tta_ms, "valid": int(out["valid"].sum())}
+
+
+def run_detection_training() -> dict:
+    """J: the first step's loss (float32 and float64) on the card against
+    the CPU given the card's proposals, the card's gradients (float64 and
+    float32) against the CPU's float64 ones, 2 warm-up and 10 timed Adam
+    steps, the held-out mAP, and 3 steps of `train_detection_shapes`."""
+    from depth_estimation_torch.data.shapes import ShapesDetection
+    from depth_estimation_torch.models.detection.rcnn import MaskRCNN
+    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
+    from depth_estimation_torch.train.experiments import (detection_item_tensors,
+                                                          detection_loss_parts,
+                                                          evaluate_detection,
+                                                          train_detection_shapes)
+
+    tag = f"training J ({J_SIZE}x{J_SIZE})"
+    ds = ShapesDetection(num_items=J_ITEMS, h=J_SIZE, w=J_SIZE, max_shapes=2, seed=0)
+    items = [ds.padded(i) for i in range(J_ITEMS)]
+    held = ShapesDetection(num_items=J_HOLDOUT, h=J_SIZE, w=J_SIZE, max_shapes=2, seed=1000)
+    held_items = [held.padded(i) for i in range(J_HOLDOUT)]
+    fused_energy_update.launches = 0
+    picks = {}
+
+    def first_step(dev: str, dtype) -> tuple:
+        """A fresh model's first-step loss and gradients on `dev` in `dtype`,
+        the proposals chosen by the first run (the card in float32)."""
+        model = MaskRCNN(**J_MODEL, generator=torch.Generator().manual_seed(0), device=dev)
+        model.to(dtype)
+        if picks:
+            model.select_proposals = lambda boxes, scores: tuple(x.to(dev) for x in picks["card"])
+        else:
+            def recording(boxes, scores):
+                picks["card"] = MaskRCNN.select_proposals(model, boxes, scores)
+                return picks["card"]
+
+            model.select_proposals = recording
+        loss = sum(detection_loss_parts(model, detection_item_tensors(items[0], dev, True, False))
+                   .values())
+        loss.backward()
+        grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        check(len(grads) == len(list(model.parameters())), "a parameter has no gradient")
+        check(np.isfinite(loss.item()) and all(bool(torch.isfinite(g).all())
+                                               for g in grads.values()), "non-finite first step")
+        return loss.item(), grads
+
+    f32, f64 = torch.float32, torch.float64
+    runs = {(dev, dt): first_step(dev, dt)
+            for dev, dt in ((DEV, f32), ("cpu", f32), (DEV, f64), ("cpu", f64))}
+
+    def worst(a, b):  # the largest max |Δ| / max |b| over the parameters
+        ga, gb = runs[a][1], runs[b][1]
+        rel = {k: float((ga[k] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+               for k, g in gb.items()}
+        k = max(rel, key=rel.get)
+        return rel[k], k
+
+    loss_rel = {dt: abs(runs[(DEV, dt)][0] - runs[("cpu", dt)][0]) / abs(runs[("cpu", dt)][0])
+                for dt in (f32, f64)}
+    diffs = {name: worst(a, b) for name, a, b in (
+        ("card f32 vs CPU f32", (DEV, f32), ("cpu", f32)),
+        ("CPU f32 vs CPU f64", ("cpu", f32), ("cpu", f64)),
+        ("card f32 vs CPU f64", (DEV, f32), ("cpu", f64)),
+        ("card f64 vs CPU f64", (DEV, f64), ("cpu", f64)))}
+    log(f"{tag}: first step given the card's proposals, loss card/CPU: float32 "
+        f"{runs[(DEV, f32)][0]:.7g}/{runs[('cpu', f32)][0]:.7g} (relative {loss_rel[f32]:.3g}), "
+        f"float64 {runs[(DEV, f64)][0]:.10g}/{runs[('cpu', f64)][0]:.10g} (relative "
+        f"{loss_rel[f64]:.3g}); tolerance {STEP_LOSS_RTOL:g}")
+    for name, (r, k) in diffs.items():
+        log(f"{tag}: gradients, {name}: largest relative difference {r:.3g} ({k})")
+    check(max(loss_rel.values()) <= STEP_LOSS_RTOL, "first-step loss differs from the CPU run")
+    g64_cpu = runs[("cpu", f64)][1]
+    for dt in (f64, f32):
+        g = runs[(DEV, dt)][1]
+        check(all(bool(((g[k] - ref).abs() <= STEP_GRAD_ATOL + STEP_GRAD_RTOL * ref.abs()).all())
+                  for k, ref in g64_cpu.items()),
+              f"the card's {str(dt)[6:]} first-step gradients differ from the CPU's float64 ones")
+
+    model = MaskRCNN(**J_MODEL, generator=torch.Generator().manual_seed(0), device=DEV)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    tensors = [detection_item_tensors(it, DEV, True, False) for it in items]
+    losses = []
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = sum(detection_loss_parts(model, tensors[len(losses) % J_ITEMS]).values())
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+
+    for _ in range(2):
+        step()
+    ms = median_ms(step, 10)
+    busy_ms = profile(tag, step, top=12)
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    t0 = time.perf_counter()
+    ev = evaluate_detection(model, held_items)
+    eval_s = time.perf_counter() - t0
+    log(f"{tag}: step {ms:.3f} ms (median of 10 after 2 warm-up steps, CUDA events); losses "
+        f"{[round(x, 4) for x in losses]}; held-out ({J_HOLDOUT} items) mAP@0.5 {ev['map50']:.4f}, "
+        f"mAP {ev['map']:.4f}, COCO mAP@0.5 {ev['coco_map50']:.4f} in {eval_s:.2f} s (random "
+        "init and 13 steps: not gated)")
+    t0 = time.perf_counter()
+    _, hist = train_detection_shapes(num_steps=3, num_items=J_ITEMS, h=J_SIZE, holdout=J_HOLDOUT,
+                                     model_kwargs={k: J_MODEL[k] for k in ("blocks", "fpn_dim")},
+                                     device=DEV)
+    entry_s = time.perf_counter() - t0
+    check(all(np.isfinite(hist["loss"])), "train_detection_shapes: non-finite loss")
+    log(f"{tag}: train_detection_shapes, 3 steps and the held-out mAP in {entry_s:.2f} s: steps "
+        f"{[round(x * 1e3, 3) for x in hist['step_seconds']]} ms (host clock), mAP@0.5 "
+        f"{hist['map50']:.4f}, mask IoU {hist['mask_iou']:.4f}")
+    launches = fused_energy_update.launches
+    check(launches == 0, "detection training launched the fused update")
+    return {"first_step": {"loss": {f"{d}_{str(t)[6:]}": v[0] for (d, t), v in runs.items()},
+                           "loss_rel": {str(t)[6:]: v for t, v in loss_rel.items()},
+                           "grad_rel": {k: v[0] for k, v in diffs.items()}}, "ms": ms, "device_busy_ms": busy_ms,
+            "losses": losses, "heldout": ev, "eval_s": eval_s, "entry_steps_ms":
+            [x * 1e3 for x in hist["step_seconds"]], "entry_map50": hist["map50"],
+            "launches_k1": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -943,9 +1276,12 @@ def main() -> int:
     f = run_serving()
     g = run_world()
     h = run_operators()
+    i = run_detection()
+    j = run_detection_training()
     log(json.dumps({"pipelines": {"A": a, "B": b, "E": e}}))
     log(json.dumps({"training": {"C": c, "D": d}}))
     log(json.dumps({"serving": {"F": f}, "world": {"G": g}, "operators": {"H": h}}))
+    log(json.dumps({"detection": {"I": i, "J": j}}))
     log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"geometry": {dt: vars(K.launch_geometry(n, LABELS, elt))
                                  for dt, elt in (("bf16", 2), ("f32", 4))}}))

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 
 from ..utils.device import resolve_device
 
-__all__ = ["FeatureCNN", "VGG16Features", "random_features", "VGG16_MEAN", "VGG16_STD"]
+__all__ = ["FeatureCNN", "VGG16Features", "random_features", "seeded_init", "VGG16_MEAN",
+           "VGG16_STD"]
 
 _VGG16_STAGES = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512))
 VGG16_MEAN = (0.485, 0.456, 0.406)
@@ -38,18 +39,21 @@ def _resize_to(y: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return F.interpolate(y, size=(h, w), mode="bilinear", align_corners=False)
 
 
-def _seeded_init(module: nn.Module, generator: torch.Generator | None) -> None:
-    """Conv weights ~ N(0, 1/fan_in) (the scale of flax's lecun_normal,
-    untruncated), biases zero, from `generator` (seeded 0 if None)."""
+def seeded_init(module: nn.Module, generator: torch.Generator | None) -> None:
+    """Convolution, transposed convolution and linear weights ~ N(0,
+    1/fan_in) (the scale of flax's lecun_normal, untruncated), biases zero,
+    from `generator` (seeded 0 if None), in module order; norms keep their
+    ones and zeros. Fan-in counts the input channels and the kernel window."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            w = m.weight
+            fan_in = w.shape[0] * w[0, 0].numel() if isinstance(m, nn.ConvTranspose2d) else w[0].numel()
             with torch.no_grad():
-                w = torch.randn(m.weight.shape, generator=generator, dtype=m.weight.dtype)
-                m.weight.copy_(w / fan_in ** 0.5)
-                m.bias.zero_()
+                w.copy_(torch.randn(w.shape, generator=generator, dtype=w.dtype) / fan_in ** 0.5)
+                if m.bias is not None:
+                    m.bias.zero_()
 
 
 class FeatureCNN(nn.Module):
@@ -67,7 +71,7 @@ class FeatureCNN(nn.Module):
                 self.add_module(f"GroupNorm_{k}", nn.GroupNorm(8, width, eps=1e-6))
                 cin = width
         self.add_module(f"Conv_{2 * len(self.widths)}", nn.Conv2d(sum(self.widths), out_dim, 1))
-        _seeded_init(self, generator)
+        seeded_init(self, generator)
         self.to(resolve_device(device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -96,7 +100,7 @@ class VGG16Features(nn.Module):
             for c, width in enumerate(widths):
                 self.add_module(f"conv{s}_{c}", nn.Conv2d(cin, width, 3, padding=1))
                 cin = width
-        _seeded_init(self, generator)
+        seeded_init(self, generator)
         self.to(resolve_device(device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -138,6 +138,8 @@ class _Conv(nn.Module):
     """'SAME' k×k convolution of an (h, w, cin) map; weight `w` is OIHW
     (the JAX tree's HWIO `w` transposed), bias `b`."""
 
+    JAX_LAYOUTS = {"w": "conv"}  # how `utils.weights.load_jax_params` lays out `w`
+
     def __init__(self, cin: int, cout: int, k: int, dtype, generator, device):
         super().__init__()
         w = torch.randn(cout, cin, k, k, generator=generator, dtype=dtype) / (cin * k * k) ** 0.5

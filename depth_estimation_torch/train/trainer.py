@@ -115,7 +115,9 @@ class Trainer:
             broadcast_(list(model.parameters()) + list(model.buffers()), self.mesh)
         return TrainState(model, self.make_optimizer(model.parameters()), 0)
 
-    def _update(self, state: TrainState, batch) -> float:
+    def update(self, state: TrainState, batch) -> float:
+        """One optimizer step on `batch` (this rank's shard of it under a
+        mesh); returns the loss, averaged over the data ranks."""
         if self.lr_schedule is not None:
             for group in state.optimizer.param_groups:
                 group["lr"] = self.lr_schedule(state.step)
@@ -140,7 +142,7 @@ class Trainer:
                 except StopIteration:
                     it = iter(batches)
                     batch = next(it)
-                loss = self._update(state, batch)
+                loss = self.update(state, batch)
                 if (i + 1) % self.log_every == 0 or i == num_steps - 1:
                     self._log({"step": state.step, "loss": loss,
                                "steps_per_s": (i + 1) / (time.time() - t0)})

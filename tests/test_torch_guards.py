@@ -12,7 +12,8 @@ import pytest
 import torch
 
 import depth_estimation_torch
-from depth_estimation_torch.apps import infer, segment, train_crf, upsample
+from depth_estimation_torch.apps import detect, infer, segment, train_crf, train_detect, upsample
+from depth_estimation_torch.models.detection.rcnn import MaskRCNN
 from depth_estimation_torch.models import pipeline as TP
 from depth_estimation_torch.models import refiner as TR
 from depth_estimation_torch.models.serving import StereoServer
@@ -37,14 +38,19 @@ def _modules():
                   for p in PKG.rglob("*.py"))
 
 
-# the modules of the training slice and of the serving, multi-device and
-# operator slice, which the two checks below must reach
+# the modules of the training slice, of the serving, multi-device and
+# operator slice and of the detection slice, which the two checks below
+# must reach
 SLICE_MODULES = [f"depth_estimation_torch.{m}" for m in (
     "ops.guided_filter", "models.features", "models.refiner", "train.experiments",
     "train.trainer", "apps.train_crf", "apps.upsample",
     "parallel.mesh", "parallel.tiling", "parallel.stereo_tiled", "models.serving",
     "models.maskdepth", "ops.spectral", "ops.classical", "ops.lsh", "apps.segment", "config",
-    "utils.timing", "utils.profiling", "utils.memory")]
+    "utils.timing", "utils.profiling", "utils.memory",
+    "ops.detection", "models.detection.anchors", "models.detection.backbone",
+    "models.detection.rcnn", "models.detection.losses", "models.detection.tta",
+    "data.shapes", "data.coco", "data.loader", "train.eval_detection", "utils.visualize",
+    "utils.weights", "apps.detect", "apps.train_detect")]
 
 
 def test_every_module_imports_without_jax():
@@ -105,6 +111,11 @@ def test_entry_points_default_to_the_gpu(tmp_path):
         lambda: StageTimer(),
         lambda: chain_timer(lambda acc: acc),
         lambda: loop_timer(lambda acc: acc),
+        lambda: MaskRCNN(),
+        lambda: TE.train_detection_shapes(num_steps=1),
+        lambda: TE.train_detection_shapes_batched(num_steps=1),
+        lambda: detect.main(["--image", str(tmp_path / "l.png")]),
+        lambda: train_detect.main(["--steps", "1"]),
     ]
     for call in no_gpu:
         with pytest.raises(RuntimeError, match="no CUDA device"):
