@@ -5,7 +5,8 @@
 
 Drives the port's flagship stereo inference, `crf_stereo_infer` on a
 288×384 pair with 16 labels, a 5-D bilateral guide and 5 mean-field
-iterations, through both lattice plan paths, then its training path:
+iterations, through both lattice plan paths, then its training path, its
+serving, multi-device, operator and detection paths, and fullres128:
 
   A. the bench configuration: calibrated capacity, 32-px tiles with bf16
      incidence blocks, bf16 mean-field state and the fused update, on a
@@ -66,16 +67,29 @@ iterations, through both lattice plan paths, then its training path:
      float64 one, so the float32 runs of card and CPU are compared only in
      print), 2 warm-up and 10 timed float32 Adam steps, one profile,
      `evaluate_detection` on 4 held-out items (mAP printed, not gated:
-     random init) and 3 steps of `train_detection_shapes`.
+     random init) and 3 steps of `train_detection_shapes`;
+  K. the repo's largest configuration, fullres128: a 1088×1920 synthetic
+     pair (6 layers, disparities to 96), 128 labels, 5 iterations,
+     calibrated as the bench calibrates it, bf16 state and the fused update,
+     so the update runs on K1w: 5 K1w launches and no K1 launch, a finite
+     disparity; under deterministic algorithms the same run with K1w's
+     plain version in its place within 0.1 px (mean) and, in float32, the
+     unfused loop within 5e-3 px; its 192×256 crop in float32 against the
+     port's CPU run (5e-3 px); a repeat of the run and the unfused bf16
+     loop are printed (the bf16 state is noise-bound at 128 labels), as
+     are the calibration, the warm pipeline (median of 3), one profile and
+     the peak device memory.
 
-It builds the CUDA kernels from `depth_estimation_torch/csrc` (one `nvcc`
-per source, all at once), prints what `ptxas` reports for every kernel
-instantiation (registers, shared memory, spills; more than 128 registers or
-any spill fails), holds each kernel against its plain PyTorch version on
-the card and times both, counts the kernel's launches in each run of A, B,
-E and F (C, D, G, H, I and J launch no hand-written kernel, and count none), and checks
-each pipeline's disparity against the same pipeline without the kernel on
-the card and against the port's own CPU run (the path the CPU tests hold
+It builds the CUDA kernels from `depth_estimation_torch/csrc` and the C++
+CPU lattice (one compiler per source, all at once), prints what `ptxas`
+reports for every kernel instantiation (registers, shared memory, spills;
+more than 128 registers or any spill fails), holds each kernel against its
+plain PyTorch version on the card (K1 at 8 to 64 labels, K1w at 3, 12, 24,
+100, 128 and 256 labels and at fullres128's shape) and times both, counts
+both kernels' launches in every phase (A, B, E and F launch K1 5 times a
+frame, K launches K1w 5 times, the others launch neither), and checks each
+pipeline's disparity against the same pipeline without the kernel on the
+card and against the port's own CPU run (the path the CPU tests hold
 against the JAX package). Any failed check raises. The last lines are the
 card's name and power limit, one JSON object of kernel numbers, and
 `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -144,6 +158,15 @@ DET_FLIP_TOL = 1e-4
 J_SIZE, J_ITEMS, J_HOLDOUT = 128, 8, 4
 J_MODEL = dict(num_classes=4, blocks=(2, 2, 2, 2), fpn_dim=128, num_proposals=32,
                num_detections=8, score_thresh=-1.0)
+# K: the repo's largest configuration, fullres128 (tools/bench_suite.py:
+# 1088×1920, 128 labels, 5 iterations, the 6-layer synthetic pair it takes
+# without a Middlebury pair), calibrated as the bench calibrates it; its
+# 192×256 crop against the port's CPU run in float32
+FULL_H, FULL_W, FULL_LABELS, FULL_MAX_DISP = 1088, 1920, 128, 96
+FULL_INCIDENCE_BYTES = 4 << 30  # the bench's budget for the f32-denominated tables
+CROP_H, CROP_W = 192, 256
+# the label counts at which K1w is held against its plain version
+WIDE_CHECK_L = (3, 12, 24, 100, 128, 256)
 
 
 def log(msg: str) -> None:
@@ -179,23 +202,41 @@ def median_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def zero_launches() -> None:
+    """Set the launch counts of both fused-update kernels, K1 and K1w, to 0."""
+    from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
+                                                           fused_energy_update_wide)
+
+    fused_energy_update.launches = fused_energy_update_wide.launches = 0
+
+
+def k1_launches() -> int:
+    """K1's launches since `zero_launches`; a path at the repo's label
+    counts of 8 to 64 must have launched K1w no time."""
+    from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
+                                                           fused_energy_update_wide)
+
+    check(fused_energy_update_wide.launches == 0,
+          f"K1w launched {fused_energy_update_wide.launches} times")
+    return fused_energy_update.launches
+
+
 # ---------------------------------------------------------------------------
 # the fused mean-field update against its plain version
 # ---------------------------------------------------------------------------
 
 
-def ptxas_report(K) -> list[dict]:
-    """Registers, static shared memory and spills of every instantiation of
-    the fused update, from the build's `ptxas -v` log, with the dynamic
-    shared memory of its launch at the flagship row count."""
+def _ptxas(name: str, pattern: str) -> dict:
+    """{groups of `pattern`: registers, static shared memory, stack and
+    spills} for each kernel of csrc/<name>.cu whose mangled name matches
+    `pattern`, from the build's `ptxas -v` log."""
     from depth_estimation_torch.utils.build import build_log
 
     found, cur = {}, None
-    for line in build_log("meanfield").splitlines():
-        # the mangled name of an instantiation opens its lines: <L, float or bfloat16>
-        k = re.search(r"fused_energy_update_kernelILi(\d+)E(f|13__nv_bfloat16)E", line)
+    for line in build_log(name).splitlines():
+        k = re.search(pattern, line)  # the mangled name opens an instantiation's lines
         if k:
-            cur = found.setdefault((int(k.group(1)), "f32" if k.group(2) == "f" else "bf16"), {})
+            cur = found.setdefault(k.groups(), {})
         elif cur is not None and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
             cur.update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
@@ -203,35 +244,63 @@ def ptxas_report(K) -> list[dict]:
             cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
             smem = re.search(r"(\d+) bytes smem", line)
             cur["static_smem"] = int(smem.group(1)) if smem else 0
+    return found
+
+
+def ptxas_report(K) -> list[dict]:
+    """Registers, static shared memory and spills of every instantiation of
+    the fused update, K1 (<L, float or bfloat16>) and K1w (<float or
+    bfloat16>), with the dynamic shared memory of K1's launch at the
+    flagship row count and of K1w's at fullres128's L = 128."""
+    dtname = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    k1 = _ptxas("meanfield", r"fused_energy_update_kernelILi(\d+)E(f|13__nv_bfloat16)E")
+    k1w = _ptxas("meanfield_wide", r"fused_energy_update_wide_kernelI(f|13__nv_bfloat16)E")
+    wanted = [("K1", L, dt, k1.get((str(L), mangled)), K.launch_geometry(H * W, L, elt).smem_bytes)
+              for L in K.SUPPORTED_L for mangled, dt, elt in (("f", "f32", 4),
+                                                             ("13__nv_bfloat16", "bf16", 2))]
+    wanted += [("K1w", FULL_LABELS, dtname[m], k1w.get((m,)),
+                K.wide_geometry(FULL_H * FULL_W, FULL_LABELS).smem_bytes) for m in dtname]
     rows = []
-    for L in K.SUPPORTED_L:
-        for dt, elt in (("f32", 4), ("bf16", 2)):
-            r = found.get((L, dt))
-            check(r is not None and "registers" in r and "spill_stores" in r,
-                  f"ptxas reported nothing for L={L} {dt}")
-            r = dict(L=L, dtype=dt, **r,
-                     dynamic_smem=K.launch_geometry(H * W, L, elt).smem_bytes)
-            log(f"  ptxas fused_energy_update L={L} {dt}: {r['registers']} registers, "
-                f"{r['static_smem']} B static + {r['dynamic_smem']} B dynamic shared memory, "
-                f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads, "
-                f"{r['stack']} B stack")
-            rows.append(r)
+    for kernel, L, dt, r, dynamic in wanted:
+        check(r is not None and "registers" in r and "spill_stores" in r,
+              f"ptxas reported nothing for {kernel} L={L} {dt}")
+        r = dict(kernel=kernel, L=L, dtype=dt, **r, dynamic_smem=dynamic)
+        log(f"  ptxas {kernel} {'L=' + str(L) if kernel == 'K1' else 'any L'} {dt}: "
+            f"{r['registers']} registers, {r['static_smem']} B static + {r['dynamic_smem']} B "
+            f"dynamic shared memory{' at L=' + str(L) if kernel == 'K1w' else ''}, "
+            f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads, "
+            f"{r['stack']} B stack")
+        rows.append(r)
     check(all(r["registers"] <= MAX_REGISTERS for r in rows), f"over {MAX_REGISTERS} registers")
     check(all(r["spill_stores"] == r["spill_loads"] == 0 for r in rows), "register spills")
     return rows
 
 
-def kernel_inputs(n: int, L: int, dtype, seed: int = 0):
+def kernel_inputs(n: int, L: int, dtype, seed: int = 0, on_device: bool = False):
+    """E0, S, C and Mu from a seed: by numpy, or (`on_device`, for the
+    fullres shapes) by a seeded generator on the card."""
+    if on_device:
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        return [(torch.rand(n, L, generator=g, device=DEV) * 10).to(dtype),
+                torch.randn(n, L, generator=g, device=DEV).to(dtype),
+                torch.rand(n, L, generator=g, device=DEV).to(dtype),
+                torch.rand(L, L, generator=g, device=DEV).to(dtype)]
     rs = np.random.RandomState(seed)
     arrays = (rs.rand(n, L) * 10, rs.randn(n, L), rs.rand(n, L), rs.rand(L, L))
     return [torch.from_numpy(a.astype(np.float32)).to(DEV, dtype) for a in arrays]
 
 
-def check_fused_update(K, n: int, L: int, dtype) -> float:
-    """Kernel against plain version; returns the largest |difference|."""
-    args = kernel_inputs(n, L, dtype)
+def check_fused_update(K, n: int, L: int, dtype, on_device: bool = False) -> float:
+    """Kernel against plain version, with the kernel that `kernel_for(L)`
+    names launched once; returns the largest |difference|."""
+    args = kernel_inputs(n, L, dtype, on_device=on_device)
+    counters = {"K1": K.fused_energy_update, "K1w": K.fused_energy_update_wide}
+    before = {k: f.launches for k, f in counters.items()}
     E_k, C_k = K.fused_energy_update(*args)
     torch.cuda.synchronize()
+    launched = {k: f.launches - before[k] for k, f in counters.items()}
+    check(launched == {k: int(k == K.kernel_for(L)) for k in counters},
+          f"n={n} L={L}: launches {launched}, want one of {K.kernel_for(L)}")
     E_r, C_r = K.fused_energy_update_reference(*args)
     if dtype == torch.float32:
         torch.testing.assert_close(E_k, E_r, **F32_TOL)
@@ -244,12 +313,12 @@ def check_fused_update(K, n: int, L: int, dtype) -> float:
         torch.testing.assert_close(C_k.float(), C_r.float(), rtol=0, atol=1e-2)
     err = max(float((E_k.float() - E_r.float()).abs().max()),
               float((C_k.float() - C_r.float()).abs().max()))
-    log(f"  fused_energy_update n={n} L={L} {str(dtype)[6:]}: max |kernel - plain| = {err:.3g}")
+    log(f"  {K.kernel_for(L)} n={n} L={L} {str(dtype)[6:]}: max |kernel - plain| = {err:.3g}")
     return err
 
 
-def time_fused_update(K, n: int, L: int, dtype) -> dict:
-    args = kernel_inputs(n, L, dtype, seed=1)
+def time_fused_update(K, n: int, L: int, dtype, on_device: bool = False) -> dict:
+    args = kernel_inputs(n, L, dtype, seed=1, on_device=on_device)
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEV)
     for _ in range(3):
         K.fused_energy_update(*args)
@@ -262,7 +331,7 @@ def time_fused_update(K, n: int, L: int, dtype) -> dict:
     bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
     out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    log(f"  time n={n} L={L} {str(dtype)[6:]}: kernel {ms * 1e3:.2f} us, plain "
+    log(f"  time {K.kernel_for(L)} n={n} L={L} {str(dtype)[6:]}: kernel {ms * 1e3:.2f} us, plain "
         f"{plain_ms * 1e3:.2f} us, bound {out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}: "
         f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
     return out
@@ -302,7 +371,6 @@ def synthetic_pair(contrast: float):
 def run_pipeline(tag: str, contrast: float, overrides: dict, want_sort_mode: str, f32: bool) -> dict:
     from depth_estimation_torch.models.pipeline import (CRFStereoConfig, calibrate_capacity,
                                                         crf_stereo_infer)
-    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
     from depth_estimation_torch.train.metrics import bad_pixel_ratio, epe
 
     left, right, gt = synthetic_pair(contrast)
@@ -315,10 +383,10 @@ def run_pipeline(tag: str, contrast: float, overrides: dict, want_sort_mode: str
     cfg = replace(cfg, fused_update=True, **overrides)
 
     # the main path: launch counts read from zero just around one run
-    fused_energy_update.launches = 0
+    zero_launches()
     out = crf_stereo_infer(left, right, cfg, device=DEV)
     torch.cuda.synchronize()
-    launches = fused_energy_update.launches
+    launches = k1_launches()
     log(f"pipeline {tag}: fused_energy_update launches in one run = {launches}")
     check(launches == NITERS, f"{launches} launches, want {NITERS}")
 
@@ -440,7 +508,6 @@ def first_step(t: dict, kw: dict):
 def run_trainable_step() -> dict:
     """C: calibrate, hold the first step against the CPU, time and profile."""
     from depth_estimation_torch.models.refiner import CRFasRNN
-    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
 
     left, right, gt = synthetic_pair(0.5)
     t = trainable_inputs(left, right, gt, DEV)
@@ -448,10 +515,10 @@ def run_trainable_step() -> dict:
     kw = trainable_plan(t["left"])
     log(f"step C: calibrated in {time.perf_counter() - t0:.2f} s: {kw}")
 
-    fused_energy_update.launches = 0
+    zero_launches()
     loss_gpu, grads_gpu = first_step(t, kw)
     torch.cuda.synchronize()
-    launches = fused_energy_update.launches
+    launches = k1_launches()
     check(launches == 0, f"the training step launched {launches} fused updates")
     check(np.isfinite(loss_gpu) and all(bool(torch.isfinite(g).all()) for g in grads_gpu.values()),
           "non-finite loss or gradient")
@@ -520,16 +587,15 @@ def run_trainable_step() -> dict:
 
 def run_train_tsukuba() -> dict:
     """D: three steps of `train_tsukuba_crf` at the JAX defaults."""
-    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
     from depth_estimation_torch.train.experiments import train_tsukuba_crf
 
     left, right, gt = synthetic_pair(1.0)
-    fused_energy_update.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     model, hist = train_tsukuba_crf(left, right, gt, num_steps=3, num_disp=LABELS, niters=NITERS,
                                     guidance="random", device=DEV)
     wall = time.perf_counter() - t0
-    launches = fused_energy_update.launches
+    launches = k1_launches()
     check(launches == 0, f"train_tsukuba_crf launched {launches} fused updates")
     values = hist["loss"] + [hist["mse_before"], hist["mse_after"]]
     check(all(np.isfinite(values)) and all(bool(torch.isfinite(p).all())
@@ -548,7 +614,6 @@ def run_pieces() -> dict:
     """E: B's pair, untiled, with and without the piece tables."""
     from depth_estimation_torch.models.pipeline import (CRFStereoConfig, calibrate_capacity,
                                                         crf_stereo_infer)
-    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
 
     left, right, _ = synthetic_pair(1.0)
     t0 = time.perf_counter()
@@ -560,10 +625,10 @@ def run_pieces() -> dict:
     check(cfg.max_pieces is not None and cfg.tile_px is None, cfg)
     plain = replace(cfg, max_pieces=None)
 
-    fused_energy_update.launches = 0
+    zero_launches()
     out = crf_stereo_infer(left, right, cfg, device=DEV)
     torch.cuda.synchronize()
-    launches = fused_energy_update.launches
+    launches = k1_launches()
     check(launches == NITERS, f"{launches} launches, want {NITERS}")
     plan = out["plans"][0]
     pieces, num_valid = int(plan.num_pieces), int(plan.num_valid)
@@ -606,18 +671,17 @@ def run_serving() -> dict:
     first frame, held frame by frame against `crf_stereo_infer`."""
     from depth_estimation_torch.models.pipeline import CRFStereoConfig, crf_stereo_infer
     from depth_estimation_torch.models.serving import StereoServer
-    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
 
     lefts, rights, _ = synthetic_batch(SERVE_BATCH, 0.5)
     cfg = CRFStereoConfig(num_disp=LABELS, niters=NITERS, tile_bf16=True, compute_dtype="bf16",
                           fused_update=True)
     server = StereoServer(cfg, device=DEV)
-    fused_energy_update.launches = 0  # the main path: one call, calibration included
+    zero_launches()  # the main path: one call, calibration included
     t0 = time.perf_counter()
     out = server(lefts, rights)
     sync(DEV)
     first_s = time.perf_counter() - t0
-    launches = fused_energy_update.launches
+    launches = k1_launches()
     c = server.cfg
     log(f"serving F: first call {first_s:.2f} s (calibration included): max_vertices="
         f"{c.max_vertices} sort_mode={c.sort_mode} tile_px={c.tile_px} tile_u={c.tile_u} "
@@ -670,7 +734,6 @@ def _world_rank(rank: int, settings: dict, init_method: str, out_path: str) -> N
     the tiled stereo on the card and on the CPU, one data-parallel step."""
     from depth_estimation_torch.models.pipeline import CRFStereoConfig
     from depth_estimation_torch.models.refiner import CRFasRNN
-    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
     from depth_estimation_torch.parallel.mesh import distributed_init, make_mesh
     from depth_estimation_torch.parallel.stereo_tiled import crf_stereo_infer_tiled
     from depth_estimation_torch.parallel.tiling import gather_rows, halo_exchange_rows
@@ -714,7 +777,7 @@ def _world_rank(rank: int, settings: dict, init_method: str, out_path: str) -> N
         out["dp_grads"] = {k: p.grad.cpu() for k, p in state.model.named_parameters()}
         flat = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()])
         out["params_every_rank"] = gather_rows(flat[None], data, axis="data").cpu()
-        check(fused_energy_update.launches == 0, f"rank {rank} launched the fused update")
+        check(k1_launches() == 0, f"rank {rank} launched the fused update")
         if rank == 0:
             torch.save(out, out_path)
     finally:
@@ -780,7 +843,6 @@ def run_world() -> dict:
 
     from depth_estimation_torch.models.pipeline import CRFStereoConfig, crf_stereo_infer
     from depth_estimation_torch.models.refiner import CRFasRNN
-    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
 
     log(f"world G: backend {WORLD_BACKEND!r}, passed explicitly: {WORLD} ranks share one card "
         "(cuda:0), and NCCL refuses two ranks on one GPU; gloo moves host memory, so the port "
@@ -796,7 +858,7 @@ def run_world() -> dict:
         log(f"world G: probe, gloo point-to-point on CUDA tensors: {answers} "
             f"({time.perf_counter() - t0:.1f} s)")
 
-        fused_energy_update.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         mp.spawn(_world_rank, args=(settings, f"file://{tmp}/rendezvous", f"{tmp}/out.pt"),
                  nprocs=WORLD)
@@ -836,7 +898,7 @@ def run_world() -> dict:
         + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
         + f"; parameters equal on every rank: {same}")
     check(same, "parameters differ between ranks after the step")
-    check(fused_energy_update.launches == 0, "the parent launched the fused update in G")
+    check(k1_launches() == 0, "the parent launched the fused update in G")
     return {"backend": WORLD_BACKEND, "ranks": WORLD, "wall_s": wall, "probe": answers,
             "tiled_card_s": out[f"tiled_{DEV}_s"], "tiled_cpu_s": out["tiled_cpu_s"],
             "tiled_max_px": float(d.max()), "tiled_vs_untiled_interior_mean_px":
@@ -867,14 +929,13 @@ def run_operators() -> dict:
     from depth_estimation_torch.models.pipeline import CRFStereoConfig, stereo_unary
     from depth_estimation_torch.ops.classical import cg_refine_bilateral
     from depth_estimation_torch.ops.costvolume import expected_disparity
-    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
     from depth_estimation_torch.ops.lsh import lsh_gaussian_filter
     from depth_estimation_torch.ops.permutohedral import build_plan
     from depth_estimation_torch.ops.spectral import _adjacency, spectral_embedding, spectral_segment
 
     left_np, right_np, gt_np = synthetic_pair(0.5)
     out, times = {}, {}
-    fused_energy_update.launches = 0
+    zero_launches()
 
     def timed(name, dev, fn):
         t0 = time.perf_counter()
@@ -903,7 +964,7 @@ def run_operators() -> dict:
         out[dev]["masks"] = masks.shape[0]
         out[dev]["composite"] = timed("composite", dev,
                                       lambda: composite_mask_depth(left, right, masks)).cpu()
-    check(fused_energy_update.launches == 0, "the operators launched the fused update")
+    check(k1_launches() == 0, "the operators launched the fused update")
     log("operators H: seconds, card / CPU: " + ", ".join(
         f"{k} {times.get(f'{k}_{DEV}_s', float('nan')):.3f} / {times.get(f'{k}_cpu_s', float('nan')):.3f}"
         for k in ("embedding", "segment", "cg_bilateral", "lsh", "composite")))
@@ -1029,7 +1090,6 @@ def run_detection() -> dict:
     from depth_estimation_torch.data.shapes import ShapesDetection
     from depth_estimation_torch.models.detection.rcnn import MaskRCNN
     from depth_estimation_torch.models.detection.tta import detect_augmented
-    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
 
     tag = f"detection I ({DET_H}x{DET_W})"
     img = ShapesDetection(num_items=1, h=DET_H, w=DET_W, max_shapes=3, seed=0)[0]["image"]
@@ -1038,13 +1098,13 @@ def run_detection() -> dict:
     model = MaskRCNN(generator=torch.Generator().manual_seed(0), device=DEV).eval()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"{tag}: MaskRCNN() built with {n_params} parameters in {time.perf_counter() - t0:.2f} s")
-    fused_energy_update.launches = 0  # the main path: one call
+    zero_launches()  # the main path: one call
     with torch.no_grad():
         t0 = time.perf_counter()
         out = model(image)
         sync(DEV)
         first_ms = (time.perf_counter() - t0) * 1e3
-        launches = fused_energy_update.launches
+        launches = k1_launches()
         model(image)
         syncs = host_syncs(lambda: model(image))
         ms = median_ms(lambda: model(image), 10)
@@ -1123,7 +1183,6 @@ def run_detection_training() -> dict:
     steps, the held-out mAP, and 3 steps of `train_detection_shapes`."""
     from depth_estimation_torch.data.shapes import ShapesDetection
     from depth_estimation_torch.models.detection.rcnn import MaskRCNN
-    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
     from depth_estimation_torch.train.experiments import (detection_item_tensors,
                                                           detection_loss_parts,
                                                           evaluate_detection,
@@ -1134,7 +1193,7 @@ def run_detection_training() -> dict:
     items = [ds.padded(i) for i in range(J_ITEMS)]
     held = ShapesDetection(num_items=J_HOLDOUT, h=J_SIZE, w=J_SIZE, max_shapes=2, seed=1000)
     held_items = [held.padded(i) for i in range(J_HOLDOUT)]
-    fused_energy_update.launches = 0
+    zero_launches()
     picks = {}
 
     def first_step(dev: str, dtype) -> tuple:
@@ -1226,7 +1285,7 @@ def run_detection_training() -> dict:
     log(f"{tag}: train_detection_shapes, 3 steps and the held-out mAP in {entry_s:.2f} s: steps "
         f"{[round(x * 1e3, 3) for x in hist['step_seconds']]} ms (host clock), mAP@0.5 "
         f"{hist['map50']:.4f}, mask IoU {hist['mask_iou']:.4f}")
-    launches = fused_energy_update.launches
+    launches = k1_launches()
     check(launches == 0, "detection training launched the fused update")
     return {"first_step": {"loss": {f"{d}_{str(t)[6:]}": v[0] for (d, t), v in runs.items()},
                            "loss_rel": {str(t)[6:]: v for t, v in loss_rel.items()},
@@ -1234,6 +1293,167 @@ def run_detection_training() -> dict:
             "losses": losses, "heldout": ev, "eval_s": eval_s, "entry_steps_ms":
             [x * 1e3 for x in hist["step_seconds"]], "entry_map50": hist["map50"],
             "launches_k1": launches}
+
+
+# ---------------------------------------------------------------------------
+# fullres128: the fused update at 128 labels (K1w); the native CPU lattice
+# ---------------------------------------------------------------------------
+
+
+def check_native() -> float:
+    """The C++ CPU lattice (built beside the kernels) against the port's
+    `lattice_filter` on the CPU, to tests/test_native.py's 2e-4."""
+    from depth_estimation_torch.ops.permutohedral import lattice_filter
+    from depth_estimation_torch.utils.native import lattice_filter_cpu
+
+    rs = np.random.RandomState(5)
+    ref = (rs.randn(4096, 5) * 1.5).astype(np.float32)
+    src = rs.rand(4096, 16).astype(np.float32)
+    want = lattice_filter(torch.from_numpy(src), torch.from_numpy(ref)).numpy()
+    err = float(np.abs(lattice_filter_cpu(src, ref) - want).max())
+    log(f"native CPU lattice (4096 points, d=5, 16 values): max |native - lattice_filter| "
+        f"= {err:.3g}")
+    check(err <= 2e-4 * (1 + float(np.abs(want).max())), "native CPU lattice disagrees")
+    return err
+
+
+def fullres_config(left, tiled: bool = True):
+    """fullres128's config for `left`, calibrated as the bench calibrates it
+    (capacity at headroom 3, 32-px tiles within the incidence budget, bf16
+    incidence blocks where tiled)."""
+    from depth_estimation_torch.models.pipeline import CRFStereoConfig, calibrate_capacity
+
+    cfg = calibrate_capacity(left, CRFStereoConfig(num_disp=FULL_LABELS, niters=NITERS),
+                             headroom=3.0, tiled=tiled, max_incidence_bytes=FULL_INCIDENCE_BYTES,
+                             device=DEV)
+    return replace(cfg, tile_bf16=cfg.tile_px is not None)
+
+
+def run_fullres() -> dict:
+    """K: fullres128 with bf16 state and the fused update: 5 launches of K1w
+    and none of K1, a finite disparity, within BF16_MEAN_TOL of the same run
+    without the kernel (its plain version in its place), the fused loop
+    within DISP_ATOL of the unfused one in float32, and the 192×256 crop in
+    float32 against the CPU."""
+    from depth_estimation_torch.data.synthetic import make_stereo_pair
+    from depth_estimation_torch.models import pipeline as P
+    from depth_estimation_torch.models.pipeline import crf_stereo_infer
+    from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
+                                                           fused_energy_update_reference,
+                                                           fused_energy_update_wide)
+    from depth_estimation_torch.train.metrics import bad_pixel_ratio, epe
+
+    tag = f"K (fullres128, {FULL_H}x{FULL_W}, L={FULL_LABELS}, bf16, fused)"
+    left, right, gt = make_stereo_pair(np.random.RandomState(0), FULL_H, FULL_W, num_layers=6,
+                                       max_disp=FULL_MAX_DISP)
+    left, right, gt = left.astype(np.float32), right.astype(np.float32), gt.astype(np.float32)
+    t0 = time.perf_counter()
+    cfg = fullres_config(left)
+    calib_s = time.perf_counter() - t0
+    cfg = replace(cfg, compute_dtype="bf16", fused_update=True)
+    tiled = cfg.tile_px is not None
+    log(f"{tag}: calibrated in {calib_s:.2f} s: tiled={tiled} tile_px={cfg.tile_px} "
+        f"tile_u={cfg.tile_u} max_vertices={cfg.max_vertices} sort_mode={cfg.sort_mode} "
+        f"tile_bf16={cfg.tile_bf16}")
+
+    # the main path: launch counts read from zero just around one run
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = crf_stereo_infer(left, right, cfg, device=DEV)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    k1, k1w = fused_energy_update.launches, fused_energy_update_wide.launches
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag}: first run {first_s:.2f} s; launches in one run: K1w {k1w}, K1 {k1}; peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    check(k1w == NITERS and k1 == 0, f"K1w {k1w} and K1 {k1} launches, want {NITERS} and 0")
+    plan = out["plans"][0]
+    num_valid = int(plan.num_valid)
+    overflow = 0 if plan.tile_overflow is None else int(plan.tile_overflow)  # tiled plans only
+    log(f"{tag}: plan {'lean per-tile' if plan.slot is None else 'general'}"
+        f"{' + tiled tables' if plan.tile_A is not None else ''}, num_valid={num_valid} of "
+        f"{cfg.max_vertices}, tile_overflow={overflow}"
+        + (f", incidence {tuple(plan.tile_A.shape)} {str(plan.tile_A.dtype)[6:]}"
+           if plan.tile_A is not None else ""))
+    check(overflow == 0 and num_valid <= cfg.max_vertices, "capacity overflow")
+    disp = out["disparity"]
+    check(disp.shape == (FULL_H, FULL_W) and disp.device.type == DEV, "disparity shape or device")
+    check(bool(torch.isfinite(disp).all()), "non-finite disparity")
+    g = torch.as_tensor(gt, device=DEV)
+    mask = (g > 0).float()
+    for name, d in (("unary", out["disparity_unary"]), ("CRF", disp)):
+        log(f"{tag}: {name} EPE {float(epe(d, g, mask)):.4f} px, "
+            f"bad-2 {float(bad_pixel_ratio(d, g, 2.0, mask)):.4f}")
+    disp = disp.cpu()
+    del out, plan
+
+    # Without the kernel, on the card. At 128 labels the bf16 state is
+    # noise-bound: two runs of this very pipeline differ by ~0.07 px mean
+    # (index_add_'s atomics sum in no fixed order and bf16 rounds the
+    # difference up), and the unfused loop, which rounds at other points,
+    # by ~0.3 px with the plain version in K1w's place as with K1w. So the
+    # kernel is held against the same fused run with its plain version in
+    # its place, both under deterministic algorithms (bf16, within
+    # BF16_MEAN_TOL), and the fused loop against the unfused one in float32
+    # (DISP_ATOL, B's gate); the bf16 unfused run is printed.
+    def run(c, plain=False):
+        if plain:
+            P.fused_energy_update = fused_energy_update_reference
+        try:
+            return crf_stereo_infer(left, right, c, device=DEV)["disparity"].float().cpu()
+        finally:
+            P.fused_energy_update = fused_energy_update
+
+    def compare(what, a, b, tol, mean=False):
+        d = (a - b).abs()
+        log(f"{tag}: |{what}| max {float(d.max()):.3g} px, mean {float(d.mean()):.3g} px"
+            + ("" if tol is None else f" (gate: {'mean' if mean else 'max'} <= {tol})"))
+        if tol is not None:
+            check(float(d.mean() if mean else d.max()) <= tol, f"{what} over {tol} px")
+        return float(d.mean()), float(d.max())
+
+    diffs = {"repeat_bf16": compare("disparity - a repeat of the same run (printed)", disp,
+                                    run(cfg), None),
+             "unfused_bf16": compare("disparity - the unfused bf16 loop (printed)", disp,
+                                     run(replace(cfg, fused_update=False)), None)}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cf = replace(cfg, compute_dtype="f32")
+        diffs["plain_bf16"] = compare("K1w's run - the plain version's in its place, bf16, "
+                                      "deterministic", run(cfg), run(cfg, plain=True),
+                                      BF16_MEAN_TOL, mean=True)
+        diffs["unfused_f32"] = compare("fused f32 run - the unfused f32 loop, deterministic",
+                                       run(cf), run(replace(cf, fused_update=False)), DISP_ATOL)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # the crop, in float32 (state and incidence blocks), against the CPU
+    lc, rc = left[:CROP_H, :CROP_W], right[:CROP_H, :CROP_W]
+    ccfg = replace(fullres_config(lc), tile_bf16=False, fused_update=True)
+    zero_launches()
+    crop_card = crf_stereo_infer(lc, rc, ccfg, device=DEV)["disparity"]
+    torch.cuda.synchronize()
+    crop_k1w = fused_energy_update_wide.launches
+    check(crop_k1w == NITERS and fused_energy_update.launches == 0, "crop launches")
+    t0 = time.perf_counter()
+    crop_cpu = crf_stereo_infer(lc, rc, ccfg, device="cpu")["disparity"]
+    crop_cpu_s = time.perf_counter() - t0
+    crop_diff = float((crop_card.cpu() - crop_cpu).abs().max())
+    log(f"{tag}: {CROP_H}x{CROP_W} crop in f32 (tile_px={ccfg.tile_px} tile_u={ccfg.tile_u}, "
+        f"K1w launches {crop_k1w}): |card - the port's CPU run| max {crop_diff:.3g} px "
+        f"(CPU run {crop_cpu_s:.1f} s)")
+    check(crop_diff <= DISP_ATOL, f"crop: max over {DISP_ATOL} px against the CPU")
+
+    crf_stereo_infer(left, right, cfg, device=DEV)  # warm-up
+    ms = median_ms(lambda: crf_stereo_infer(left, right, cfg, device=DEV), 3)
+    log(f"{tag}: warm pipeline {ms:.3f} ms (median of 3, CUDA events)")
+    busy_ms = profile(f"pipeline {tag}", lambda: crf_stereo_infer(left, right, cfg, device=DEV))
+    return {"launches_k1w": k1w, "launches_k1": k1, "ms": ms, "device_busy_ms": busy_ms,
+            "first_s": first_s, "calibrate_s": calib_s, "tiled": tiled, "tile_u": cfg.tile_u,
+            "max_vertices": cfg.max_vertices, "sort_mode": cfg.sort_mode, "num_valid": num_valid,
+            "peak_bytes": peak, "mean_max_abs_diff": diffs, "crop_max_abs_diff_cpu": crop_diff,
+            "crop_launches_k1w": crop_k1w}
 
 
 def main() -> int:
@@ -1254,18 +1474,31 @@ def main() -> int:
     libs = build_all()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_report(K)
+    native_err = check_native()
 
-    log("fused_energy_update against its plain version:")
-    n = H * W
+    log("fused_energy_update against its plain version (K1 at L in "
+        f"{K.SUPPORTED_L}, K1w at every other L):")
+    n, n_full = H * W, FULL_H * FULL_W
     errs = {}
     for rows, L in ((n, LABELS), (n - 7, LABELS), (n, 8), (n, 32), (n, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             errs[rows, L, dtype] = check_fused_update(K, rows, L, dtype)
+    for L in WIDE_CHECK_L:
+        for rows in (n, n - 7):
+            for dtype in (torch.float32, torch.bfloat16):
+                errs[rows, L, dtype] = check_fused_update(K, rows, L, dtype)
+    for dtype in (torch.float32, torch.bfloat16):  # K1w at fullres128's shape
+        errs[n_full, FULL_LABELS, dtype] = check_fused_update(K, n_full, FULL_LABELS, dtype,
+                                                              on_device=True)
     t_bf16 = time_fused_update(K, n, LABELS, torch.bfloat16)
     t_f32 = time_fused_update(K, n, LABELS, torch.float32)
     t_wide = {f"bf16_L{L}": time_fused_update(K, n, L, torch.bfloat16) for L in (32, 64)}
     yardsticks = {key: time_yardsticks(K, n, LABELS, dtype)
                   for key, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    w_full = {dt: time_fused_update(K, n_full, FULL_LABELS, dtype, on_device=True)
+              for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    w_flagship = {dt: time_fused_update(K, n, FULL_LABELS, dtype)
+                  for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
 
     a = run_pipeline("A (bench configuration, lean plan, bf16)", 0.5,
                      dict(tile_bf16=True, compute_dtype="bf16"), "packed1", f32=False)
@@ -1278,15 +1511,17 @@ def main() -> int:
     h = run_operators()
     i = run_detection()
     j = run_detection_training()
-    log(json.dumps({"pipelines": {"A": a, "B": b, "E": e}}))
+    k = run_fullres()
+    log(json.dumps({"pipelines": {"A": a, "B": b, "E": e, "K": k}}))
     log(json.dumps({"training": {"C": c, "D": d}}))
     log(json.dumps({"serving": {"F": f}, "world": {"G": g}, "operators": {"H": h}}))
     log(json.dumps({"detection": {"I": i, "J": j}}))
-    log(json.dumps({"ptxas": ptxas}))
+    log(json.dumps({"ptxas": ptxas, "native_lattice_max_abs_err": native_err}))
     log(json.dumps({"geometry": {dt: vars(K.launch_geometry(n, LABELS, elt))
-                                 for dt, elt in (("bf16", 2), ("f32", 4))}}))
+                                 for dt, elt in (("bf16", 2), ("f32", 4))},
+                    "geometry_wide": {L: vars(K.wide_geometry(n_full, L)) for L in WIDE_CHECK_L}}))
 
-    kernel = {
+    k1 = {
         "name": "fused_energy_update", "route": "cuda",
         "source": "depth_estimation_torch/csrc/meanfield.cu",
         "replaces": "depth_estimation_tpu/ops/pallas/meanfield.py:55",
@@ -1294,14 +1529,31 @@ def main() -> int:
         **t_bf16, "library_ms": None,
         "us": t_bf16["ms"] * 1e3, "bound_us": t_bf16["bound_ms"] * 1e3,
         "shape": [n, LABELS], "dtype": "bf16", "launches_b": b["launches"],
-        "launches_f": f["launches"],
+        "launches_f": f["launches"], "launches_k": k["launches_k1"],
         "max_abs_err_f32": errs[n, LABELS, torch.float32],
         "f32": t_f32, **t_wide, "yardsticks": yardsticks,
         "design": "a warp per tile of rows, coalesced 16-byte loads, Mu in registers",
     }
+    k1w = {
+        "name": "fused_energy_update_wide", "route": "cuda",
+        "source": "depth_estimation_torch/csrc/meanfield_wide.cu",
+        "replaces": "depth_estimation_tpu/ops/pallas/meanfield.py:55",
+        "launches": k["launches_k1w"],
+        "max_abs_err": errs[n_full, FULL_LABELS, torch.bfloat16],
+        **w_full["bf16"], "library_ms": None,
+        "us": w_full["bf16"]["ms"] * 1e3, "bound_us": w_full["bf16"]["bound_ms"] * 1e3,
+        "shape": [n_full, FULL_LABELS], "dtype": "bf16",
+        "launches_crop_f32": k["crop_launches_k1w"],
+        "max_abs_err_f32": errs[n_full, FULL_LABELS, torch.float32],
+        "f32": w_full["f32"], f"n{n}_L{FULL_LABELS}": w_flagship,
+        "max_abs_err_by_L": {f"L{L}_{str(dt)[6:]}": max(errs[n, L, dt], errs[n - 7, L, dt])
+                             for L in WIDE_CHECK_L for dt in (torch.float32, torch.bfloat16)},
+        "design": "a block per tile of rows, values read one by one, q in shared memory, "
+                  "Mu staged through shared memory in 64-row blocks, 4x4 FFMA tiles a thread",
+    }
     log(f"chip_smoke: the whole script took {time.perf_counter() - t_start:.1f} s")
     log(card_line())
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": [k1, k1w]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -6,8 +6,9 @@ the JAX package's `models/pipeline.py`):
   → softmax-expectation disparity decode.
 
 With `fused_update` each iteration is one lattice filter and one launch of
-the CUDA kernel `ops.cuda.meanfield.fused_energy_update` (its plain
-version on the CPU).
+a CUDA kernel through `ops.cuda.meanfield.fused_energy_update`: K1 at 8,
+16, 32 or 64 labels, K1w at any other count (its plain version on the
+CPU).
 """
 from __future__ import annotations
 

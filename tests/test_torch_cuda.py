@@ -1,4 +1,5 @@
-"""The PyTorch port's CUDA kernels against their plain versions, on a card.
+"""The PyTorch port's CUDA kernels (K1 and K1w) against their plain
+versions, on a card.
 
 These tests import neither JAX nor the JAX package, so a GPU machine without
 JAX runs them, skipping the JAX-specific conftest:
@@ -25,12 +26,16 @@ def _needs_card():
 
 
 def _check(arrays, dtype):
-    """One launch, counted once, against the plain version on the same inputs."""
+    """One launch of the kernel that `kernel_for(L)` names, counted once on
+    its own counter, against the plain version on the same inputs."""
     arrays = [torch.from_numpy(a).to("cuda", dtype) for a in arrays]
-    before = T.fused_energy_update.launches
+    counters = {"K1": T.fused_energy_update, "K1w": T.fused_energy_update_wide}
+    before = {k: f.launches for k, f in counters.items()}
     E_k, C_k = T.fused_energy_update(*arrays)
     torch.cuda.synchronize()
-    assert T.fused_energy_update.launches == before + 1
+    want = T.kernel_for(arrays[0].shape[1])
+    assert {k: f.launches - before[k] for k, f in counters.items()} == {
+        k: int(k == want) for k in counters}
     E_r, C_r = T.fused_energy_update_reference(*arrays)
     if dtype == torch.float32:
         torch.testing.assert_close(E_k, E_r, rtol=1e-5, atol=1e-5)
@@ -78,3 +83,32 @@ def test_cuda_kernel_subtracts_the_max_from_large_energies(L, dtype):
     _needs_card()
     e0, s, c, mu = _inputs(5, 5000, L)
     _check((e0 * 100 + 500, s * 1e3, c * 1e3, mu), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 3, 12, 24, 100, 128, 256])
+@pytest.mark.parametrize("n", [1, 7, 110585])
+def test_wide_kernel_matches_plain_version(n, L, dtype):
+    """K1w, which serves every L outside SUPPORTED_L, at ragged row counts."""
+    _needs_card()
+    _check(_inputs(6, n, L), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [3, 12, 100])
+def test_wide_kernel_takes_rows_off_16_byte_alignment(L):
+    """Contiguous arrays that start one element into their storage: K1w
+    reads and writes value by value (K1 would refuse them)."""
+    _needs_card()
+    arrays = [torch.from_numpy(a).to("cuda", torch.bfloat16) for a in _inputs(7, 1001, L)]
+    shifted = []
+    for a in arrays:
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device="cuda")
+        shifted.append(buf[1:].view(a.shape).copy_(a))
+    assert shifted[0].data_ptr() % 16 == 2
+    E_k, C_k = T.fused_energy_update_wide(*shifted)
+    E_r, C_r = T.fused_energy_update_reference(*arrays)
+    ulp = 2.0 ** (torch.floor(torch.log2(E_r.float().abs().clamp_min(1e-30))) - 7)
+    assert bool(((E_k.float() - E_r.float()).abs() <= ulp).all())
+    torch.testing.assert_close(C_k.float(), C_r.float(), rtol=0, atol=1e-2)

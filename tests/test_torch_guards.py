@@ -1,7 +1,9 @@
 """Guards of the PyTorch port: it imports without JAX and never names the
-JAX package, its entry points default to the GPU and refuse to fall back
-to the CPU, and the fused update's wrapper takes its plain version only
-for CPU tensors."""
+JAX package, its subpackages re-export the JAX package's names, its entry
+points default to the GPU and refuse to fall back to the CPU, and the fused
+update's wrappers take their plain version only for CPU tensors."""
+import ast
+import importlib
 import pathlib
 import shutil
 import subprocess
@@ -50,7 +52,9 @@ SLICE_MODULES = [f"depth_estimation_torch.{m}" for m in (
     "ops.detection", "models.detection.anchors", "models.detection.backbone",
     "models.detection.rcnn", "models.detection.losses", "models.detection.tta",
     "data.shapes", "data.coco", "data.loader", "train.eval_detection", "utils.visualize",
-    "utils.weights", "apps.detect", "apps.train_detect")]
+    "utils.weights", "apps.detect", "apps.train_detect",
+    "ops.cuda.meanfield", "ops.boxfilter", "ops.costvolume", "data.datasets", "utils.native",
+    "utils.build")]
 
 
 def test_every_module_imports_without_jax():
@@ -77,6 +81,65 @@ def test_no_file_names_the_jax_package():
         text = p.read_text()
         assert "depth_estimation_tpu" not in text, p
         assert "import jax" not in text and "from jax" not in text, p
+
+
+# JAX re-exports that the port spells differently (the subpackage's
+# docstring maps each), or leaves at its module to keep the module importable
+RENAMED = {
+    "models": {"crf_rnn_apply", "crf_rnn_init", "refiner_apply", "refiner_init",
+               "uncertainty_apply", "uncertainty_init", "upsampler_apply", "upsampler_init"},
+    "parallel": {"data_sharding", "replicated"},
+    "ops": {"guided_filter"},
+}
+PORT_NAMES = {"models": {"CRFasRNN", "CRFDepthRefiner", "CRFWithUncertainty",
+                         "CRFDepthUpsampler"},
+              "parallel": {"shard_batch", "broadcast_"}}
+
+
+def _reexports(init: pathlib.Path) -> dict[str, set[str]]:
+    """{leaf module: names} of an `__init__`'s `from .leaf import ...` lines."""
+    out = {}
+    for node in ast.parse(init.read_text()).body:
+        if isinstance(node, ast.ImportFrom) and node.level == 1:
+            out.setdefault(node.module, set()).update(a.name for a in node.names)
+    return out
+
+
+@pytest.mark.parametrize("sub", ["ops", "crf", "data", "models", "train", "parallel"])
+def test_subpackages_reexport_the_jax_names(sub):
+    """Every name the JAX package's subpackage re-exports is re-exported by
+    the port's under the same name, from the same leaf module, and is that
+    module's object; or it is one the port spells differently, whose port
+    name is re-exported and mapped in the docstring."""
+    pkg = importlib.import_module(f"depth_estimation_torch.{sub}")
+    jax_names = _reexports(REPO / "depth_estimation_tpu" / sub / "__init__.py")
+    for leaf, names in jax_names.items():
+        mod = importlib.import_module(f"depth_estimation_torch.{sub}.{leaf}")
+        for name in names - RENAMED.get(sub, set()):
+            assert getattr(pkg, name) is getattr(mod, name), (sub, name)
+    for name in RENAMED.get(sub, set()) - {"guided_filter"}:
+        assert not hasattr(pkg, name)
+        assert name.split("_")[0] in pkg.__doc__ or name in pkg.__doc__, name
+    for name in PORT_NAMES.get(sub, set()):
+        assert hasattr(pkg, name) and name in pkg.__doc__, name
+    assert set().union(*jax_names.values()) >= RENAMED.get(sub, set())
+
+
+def test_every_reexport_resolves():
+    """Each name an `__init__` of the port imports, or loads at first use,
+    resolves; `ops.guided_filter` stays the module."""
+    for init in PKG.rglob("__init__.py"):
+        pkg = importlib.import_module(".".join(init.parent.relative_to(REPO).parts))
+        for leaf, names in _reexports(init).items():
+            for name in names:
+                assert getattr(pkg, name) is not None, (pkg.__name__, name)
+        for name in getattr(pkg, "_LAZY", {}):
+            assert callable(getattr(pkg, name)), name
+    ops = importlib.import_module("depth_estimation_torch.ops")
+    assert ops.guided_filter.__name__ == "depth_estimation_torch.ops.guided_filter"
+    assert ops.spectral_segment.__module__ == "depth_estimation_torch.ops.spectral"
+    with pytest.raises(AttributeError):
+        ops.no_such_name
 
 
 def test_entry_points_default_to_the_gpu(tmp_path):
@@ -159,7 +222,8 @@ def test_build_is_keyed_by_source_and_out_of_git():
     assert target.parent == build.BUILD_DIR and target.name.startswith("libmeanfield-")
     ignored = (REPO / ".gitignore").read_text().splitlines()
     assert "depth_estimation_torch/_build/" in ignored
-    assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == ["meanfield"]
+    assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == ["meanfield", "meanfield_wide"]
+    assert build._target("meanfield_wide").name.startswith("libmeanfield_wide-")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert ("-Xptxas", "-v") in zip(build.NVCC_FLAGS, build.NVCC_FLAGS[1:])
 
