@@ -83,11 +83,15 @@ serving, multi-device, operator and detection paths, and fullres128:
 It builds the CUDA kernels from `depth_estimation_torch/csrc` and the C++
 CPU lattice (one compiler per source, all at once), prints what `ptxas`
 reports for every kernel instantiation (registers, shared memory, spills;
-more than 128 registers or any spill fails), holds each kernel against its
-plain PyTorch version on the card (K1 at 8 to 64 labels, K1w at 3, 12, 24,
-100, 128 and 256 labels and at fullres128's shape) and times both, counts
-both kernels' launches in every phase (A, B, E and F launch K1 5 times a
-frame, K launches K1w 5 times, the others launch neither), and checks each
+more registers than the kernel's own __launch_bounds__ allow, or any spill,
+fails), holds each kernel against its plain PyTorch version on the card
+(K1 at 8 to 64 labels; K1w, the tensor-core kernel, at 3, 12, 24, 100, 128
+and 256 labels, at the edges of its padded widths and at fullres128's
+shape; K1w_ffma, which serves L above 256, at 257 and 300) and times them
+(K1w_ffma also at fullres128's rows with 24, 128 and 256 labels, as the
+yardstick of the FFMA design K1w replaced there), counts the kernels' launches in every phase (A, B, E and F
+launch K1 5 times a frame, K launches K1w 5 times, the others launch none
+of them), and checks each
 pipeline's disparity against the same pipeline without the kernel on the
 card and against the port's own CPU run (the path the CPU tests hold
 against the JAX package). Any failed check raises. The last lines are the
@@ -110,10 +114,11 @@ import torch
 
 H, W, LABELS, NITERS, TILE_PX = 288, 384, 16, 5, 32
 DEV = "cuda"
-# published peaks of one H100 SXM: memory bytes/s, float32 (non-tensor-core) FLOP/s
-PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
+# published peaks of one H100 SXM: memory bytes/s, float32 (non-tensor-core)
+# FLOP/s, dense bf16 tensor-core FLOP/s
+PEAK_BYTES_S, PEAK_F32_FLOP_S, PEAK_BF16_TC_FLOP_S = 3.35e12, 67e12, 989e12
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
-MAX_REGISTERS = 128  # 4 blocks of 128 threads per SM: __launch_bounds__(128, 4)
+SM_REGISTERS = 65536  # 32-bit registers of an SM, shared by its resident blocks
 DISP_ATOL = 5e-3  # px: the tolerance of the JAX package's fused-update test
 BF16_MEAN_TOL = 0.1  # px: mean |Δdisparity| where the two sides round in bf16
 PIECES_ATOL = 1e-4  # px: pieces only reorder float32 splat sums
@@ -165,8 +170,11 @@ J_MODEL = dict(num_classes=4, blocks=(2, 2, 2, 2), fpn_dim=128, num_proposals=32
 FULL_H, FULL_W, FULL_LABELS, FULL_MAX_DISP = 1088, 1920, 128, 96
 FULL_INCIDENCE_BYTES = 4 << 30  # the bench's budget for the f32-denominated tables
 CROP_H, CROP_W = 192, 256
-# the label counts at which K1w is held against its plain version
+# the label counts at which K1w is held against its plain version, and the
+# edges of its padded widths (32, 64, 128, 256) and of its limit; K1w_ffma's
 WIDE_CHECK_L = (3, 12, 24, 100, 128, 256)
+WIDE_EDGE_L = (1, 17, 33, 65, 127, 129, 255)
+FFMA_CHECK_L = (257, 300)
 
 
 def log(msg: str) -> None:
@@ -202,23 +210,28 @@ def median_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def zero_launches() -> None:
-    """Set the launch counts of both fused-update kernels, K1 and K1w, to 0."""
-    from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
-                                                           fused_energy_update_wide)
+def counters() -> dict:
+    """The fused-update kernels' wrappers, by kernel name."""
+    from depth_estimation_torch.ops.cuda import meanfield as K
 
-    fused_energy_update.launches = fused_energy_update_wide.launches = 0
+    return {"K1": K.fused_energy_update, "K1w": K.fused_energy_update_wide,
+            "K1w_ffma": K.fused_energy_update_wide_ffma}
+
+
+def zero_launches() -> None:
+    """Set the launch counts of the fused-update kernels (K1, K1w and
+    K1w_ffma) to 0."""
+    for fn in counters().values():
+        fn.launches = 0
 
 
 def k1_launches() -> int:
     """K1's launches since `zero_launches`; a path at the repo's label
-    counts of 8 to 64 must have launched K1w no time."""
-    from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
-                                                           fused_energy_update_wide)
-
-    check(fused_energy_update_wide.launches == 0,
-          f"K1w launched {fused_energy_update_wide.launches} times")
-    return fused_energy_update.launches
+    counts of 8 to 64 must have launched K1w and K1w_ffma no time."""
+    wrappers = counters()
+    for name in ("K1w", "K1w_ffma"):
+        check(wrappers[name].launches == 0, f"{name} launched {wrappers[name].launches} times")
+    return wrappers["K1"].launches
 
 
 # ---------------------------------------------------------------------------
@@ -247,32 +260,52 @@ def _ptxas(name: str, pattern: str) -> dict:
     return found
 
 
+def register_cap(threads: int, min_blocks: int) -> int:
+    """The registers a thread may use under __launch_bounds__(threads,
+    min_blocks): the SM's registers over the threads of min_blocks blocks,
+    at most 255."""
+    return min(255, SM_REGISTERS // (threads * min_blocks))
+
+
 def ptxas_report(K) -> list[dict]:
     """Registers, static shared memory and spills of every instantiation of
-    the fused update, K1 (<L, float or bfloat16>) and K1w (<float or
-    bfloat16>), with the dynamic shared memory of K1's launch at the
-    flagship row count and of K1w's at fullres128's L = 128."""
+    the fused update: K1 (<L, float or bfloat16>, __launch_bounds__(128,
+    4)), K1w (<float or bfloat16, LP>, its bounds from `wide_config`) and
+    K1w_ffma (<float or bfloat16>, (256, 2)), each held to its own
+    register cap, with the dynamic shared memory of K1's launch at the
+    flagship row count and of the K1w kernels' at fullres128's row count."""
     dtname = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    elts = {"f": 4, "13__nv_bfloat16": 2}
+    n_full = FULL_H * FULL_W
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     k1 = _ptxas("meanfield", r"fused_energy_update_kernelILi(\d+)E(f|13__nv_bfloat16)E")
-    k1w = _ptxas("meanfield_wide", r"fused_energy_update_wide_kernelI(f|13__nv_bfloat16)E")
-    wanted = [("K1", L, dt, k1.get((str(L), mangled)), K.launch_geometry(H * W, L, elt).smem_bytes)
-              for L in K.SUPPORTED_L for mangled, dt, elt in (("f", "f32", 4),
-                                                             ("13__nv_bfloat16", "bf16", 2))]
-    wanted += [("K1w", FULL_LABELS, dtname[m], k1w.get((m,)),
-                K.wide_geometry(FULL_H * FULL_W, FULL_LABELS).smem_bytes) for m in dtname]
+    k1w = _ptxas("meanfield_wide", r"fused_energy_update_wide_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+    ffma = _ptxas("meanfield_wide_ffma", r"fused_energy_update_wide_ffma_kernelI(f|13__nv_bfloat16)E")
+    wanted = [("K1", f"L={L}", dtname[m], k1.get((str(L), m)),
+               K.launch_geometry(H * W, L, elts[m]).smem_bytes, register_cap(128, 4))
+              for L in K.SUPPORTED_L for m in dtname]
+    for m in dtname:
+        for lp in (32, 64, 128, 256):
+            cfg = K.wide_config(elts[m], lp)
+            wanted.append(("K1w", f"LP={lp}", dtname[m], k1w.get((m, str(lp))),
+                           K.wide_geometry(n_full, lp, elts[m], sms).smem_bytes,
+                           register_cap(cfg["warps"] * 32, cfg["min_blocks"])))
+    wanted += [("K1w_ffma", "any L", dtname[m], ffma.get((m,)),
+                K.wide_ffma_geometry(n_full, FULL_LABELS).smem_bytes, register_cap(256, 2))
+               for m in dtname]
     rows = []
-    for kernel, L, dt, r, dynamic in wanted:
+    for kernel, which, dt, r, dynamic, cap in wanted:
         check(r is not None and "registers" in r and "spill_stores" in r,
-              f"ptxas reported nothing for {kernel} L={L} {dt}")
-        r = dict(kernel=kernel, L=L, dtype=dt, **r, dynamic_smem=dynamic)
-        log(f"  ptxas {kernel} {'L=' + str(L) if kernel == 'K1' else 'any L'} {dt}: "
-            f"{r['registers']} registers, {r['static_smem']} B static + {r['dynamic_smem']} B "
-            f"dynamic shared memory{' at L=' + str(L) if kernel == 'K1w' else ''}, "
+              f"ptxas reported nothing for {kernel} {which} {dt}")
+        r = dict(kernel=kernel, instance=which, dtype=dt, **r, dynamic_smem=dynamic,
+                 register_cap=cap)
+        log(f"  ptxas {kernel} {which} {dt}: {r['registers']} registers (cap {cap}), "
+            f"{r['static_smem']} B static + {r['dynamic_smem']} B dynamic shared memory, "
             f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads, "
             f"{r['stack']} B stack")
+        check(r["registers"] <= cap, f"{kernel} {which} {dt}: over its cap of {cap} registers")
+        check(r["spill_stores"] == r["spill_loads"] == 0, f"{kernel} {which} {dt}: register spills")
         rows.append(r)
-    check(all(r["registers"] <= MAX_REGISTERS for r in rows), f"over {MAX_REGISTERS} registers")
-    check(all(r["spill_stores"] == r["spill_loads"] == 0 for r in rows), "register spills")
     return rows
 
 
@@ -294,12 +327,12 @@ def check_fused_update(K, n: int, L: int, dtype, on_device: bool = False) -> flo
     """Kernel against plain version, with the kernel that `kernel_for(L)`
     names launched once; returns the largest |difference|."""
     args = kernel_inputs(n, L, dtype, on_device=on_device)
-    counters = {"K1": K.fused_energy_update, "K1w": K.fused_energy_update_wide}
-    before = {k: f.launches for k, f in counters.items()}
+    wrappers = counters()
+    before = {k: f.launches for k, f in wrappers.items()}
     E_k, C_k = K.fused_energy_update(*args)
     torch.cuda.synchronize()
-    launched = {k: f.launches - before[k] for k, f in counters.items()}
-    check(launched == {k: int(k == K.kernel_for(L)) for k in counters},
+    launched = {k: f.launches - before[k] for k, f in wrappers.items()}
+    check(launched == {k: int(k == K.kernel_for(L)) for k in wrappers},
           f"n={n} L={L}: launches {launched}, want one of {K.kernel_for(L)}")
     E_r, C_r = K.fused_energy_update_reference(*args)
     if dtype == torch.float32:
@@ -317,21 +350,31 @@ def check_fused_update(K, n: int, L: int, dtype, on_device: bool = False) -> flo
     return err
 
 
-def time_fused_update(K, n: int, L: int, dtype, on_device: bool = False) -> dict:
+def time_fused_update(K, n: int, L: int, dtype, on_device: bool = False,
+                      kernel: str | None = None) -> dict:
+    """The kernel that `kernel_for(L)` names (or `kernel`, launched through
+    its own wrapper) and the plain version, L2 flushed, against the least
+    time the card could take: the larger of the bytes over the memory rate
+    and the operations over their peak rates (q·Mu, 2L² a row, on the
+    tensor cores at the bf16 rate; E, max, exp, sum and divide, 6L a row,
+    on the f32 pipes)."""
+    kernel = kernel or K.kernel_for(L)
+    fn = counters()[kernel]
     args = kernel_inputs(n, L, dtype, seed=1, on_device=on_device)
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEV)
     for _ in range(3):
-        K.fused_energy_update(*args)
+        fn(*args)
         K.fused_energy_update_reference(*args)
-    ms = median_ms(lambda: K.fused_energy_update(*args), 100, flush)
+    ms = median_ms(lambda: fn(*args), 100, flush)
     plain_ms = median_ms(lambda: K.fused_energy_update_reference(*args), 50, flush)
     elt = args[0].element_size()
     nbytes = (5 * n * L + L * L) * elt  # E0, S, C, Mu read once; E, C' written once
-    flops = n * (2 * L * L + 6 * L)  # E: 2L, max/exp/sum/divide: 4L, q·Mu: 2L²
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
+    flops = n * (2 * L * L + 6 * L)
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    ops_ms = (n * 2 * L * L / PEAK_BF16_TC_FLOP_S + n * 6 * L / PEAK_F32_FLOP_S) * 1e3
     out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    log(f"  time {K.kernel_for(L)} n={n} L={L} {str(dtype)[6:]}: kernel {ms * 1e3:.2f} us, plain "
+    log(f"  time {kernel} n={n} L={L} {str(dtype)[6:]}: kernel {ms * 1e3:.2f} us, plain "
         f"{plain_ms * 1e3:.2f} us, bound {out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}: "
         f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
     return out
@@ -431,10 +474,12 @@ def run_pipeline(tag: str, contrast: float, overrides: dict, want_sort_mode: str
             "tile_u": cfg.tile_u, "num_valid": num_valid}
 
 
-def profile(tag: str, fn, top: int = 8):
+def profile(tag: str, fn, top: int = 8, share_of: str | None = None):
     """One warm run under torch.profiler: device busy time against the
     run's wall time, and the kernels that take the most device time.
-    Returns the busy ms, or None where the profiler saw no device time."""
+    Returns the busy ms, or None where the profiler saw no device time;
+    with `share_of`, (busy ms, the device ms of the kernels whose name
+    holds it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
@@ -448,12 +493,17 @@ def profile(tag: str, fn, top: int = 8):
     busy_ms = sum(r[0] for r in rows)
     if busy_ms == 0:
         log(f"{tag}: profiler saw no device time: busy share not measured")
-        return None
+        return None if share_of is None else (None, None)
     log(f"{tag}: profiled run {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), {sum(r[1] for r in rows)} device ops; top by device time:")
     for t, count, key in sorted(rows, reverse=True)[:top]:
         log(f"    {t:8.3f} ms {count:4d}x  {key[:90]}")
-    return busy_ms
+    if share_of is None:
+        return busy_ms
+    mine = sum(t for t, _, key in rows if share_of in key)
+    log(f"{tag}: {share_of} takes {mine:.3f} of {busy_ms:.3f} device ms "
+        f"({100 * mine / busy_ms:.1f}%)")
+    return busy_ms, mine
 
 
 # ---------------------------------------------------------------------------
@@ -1329,6 +1379,23 @@ def fullres_config(left, tiled: bool = True):
     return replace(cfg, tile_bf16=cfg.tile_px is not None)
 
 
+def plain_split_k(E0, S, C, Mu):
+    """The plain version with Q'·Mu summed over the two halves of l apart
+    (another order of the same f32 sums)."""
+    E = E0.float() + (S.float() - C.float())
+    Q, h = torch.softmax(-E, dim=-1), Mu.shape[0] // 2
+    Cn = Q[:, :h] @ Mu[:h].float() + Q[:, h:] @ Mu[h:].float()
+    return E.to(E0.dtype), Cn.to(E0.dtype)
+
+
+def plain_f64(E0, S, C, Mu):
+    """The plain version with the softmax and Q'·Mu in float64 and C'
+    rounded once (closer to the exact function than any f32 order)."""
+    E = E0.float() + (S.float() - C.float())
+    Cn = torch.softmax(-E.double(), dim=-1) @ Mu.double()
+    return E.to(E0.dtype), Cn.to(E0.dtype)
+
+
 def run_fullres() -> dict:
     """K: fullres128 with bf16 state and the fused update: 5 launches of K1w
     and none of K1, a finite disparity, within BF16_MEAN_TOL of the same run
@@ -1340,7 +1407,8 @@ def run_fullres() -> dict:
     from depth_estimation_torch.models.pipeline import crf_stereo_infer
     from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
                                                            fused_energy_update_reference,
-                                                           fused_energy_update_wide)
+                                                           fused_energy_update_wide,
+                                                           fused_energy_update_wide_ffma)
     from depth_estimation_torch.train.metrics import bad_pixel_ratio, epe
 
     tag = f"K (fullres128, {FULL_H}x{FULL_W}, L={FULL_LABELS}, bf16, fused)"
@@ -1364,10 +1432,12 @@ def run_fullres() -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     k1, k1w = fused_energy_update.launches, fused_energy_update_wide.launches
+    ffma = fused_energy_update_wide_ffma.launches
     peak = torch.cuda.max_memory_allocated()
-    log(f"{tag}: first run {first_s:.2f} s; launches in one run: K1w {k1w}, K1 {k1}; peak "
-        f"device memory {peak / 2**30:.2f} GiB")
-    check(k1w == NITERS and k1 == 0, f"K1w {k1w} and K1 {k1} launches, want {NITERS} and 0")
+    log(f"{tag}: first run {first_s:.2f} s; launches in one run: K1w {k1w}, K1 {k1}, K1w_ffma "
+        f"{ffma}; peak device memory {peak / 2**30:.2f} GiB")
+    check(k1w == NITERS and k1 == 0 and ffma == 0,
+          f"K1w {k1w}, K1 {k1} and K1w_ffma {ffma} launches, want {NITERS}, 0 and 0")
     plan = out["plans"][0]
     num_valid = int(plan.num_valid)
     overflow = 0 if plan.tile_overflow is None else int(plan.tile_overflow)  # tiled plans only
@@ -1397,9 +1467,9 @@ def run_fullres() -> dict:
     # its place, both under deterministic algorithms (bf16, within
     # BF16_MEAN_TOL), and the fused loop against the unfused one in float32
     # (DISP_ATOL, B's gate); the bf16 unfused run is printed.
-    def run(c, plain=False):
-        if plain:
-            P.fused_energy_update = fused_energy_update_reference
+    def run(c, plain=False, update=None):
+        if plain or update is not None:
+            P.fused_energy_update = update or fused_energy_update_reference
         try:
             return crf_stereo_infer(left, right, c, device=DEV)["disparity"].float().cpu()
         finally:
@@ -1407,11 +1477,13 @@ def run_fullres() -> dict:
 
     def compare(what, a, b, tol, mean=False):
         d = (a - b).abs()
-        log(f"{tag}: |{what}| max {float(d.max()):.3g} px, mean {float(d.mean()):.3g} px"
+        differ = int((d > 0).sum())
+        log(f"{tag}: |{what}| max {float(d.max()):.3g} px, mean {float(d.mean()):.3g} px, "
+            f"{differ} of {d.numel()} pixels differ"
             + ("" if tol is None else f" (gate: {'mean' if mean else 'max'} <= {tol})"))
         if tol is not None:
             check(float(d.mean() if mean else d.max()) <= tol, f"{what} over {tol} px")
-        return float(d.mean()), float(d.max())
+        return float(d.mean()), float(d.max()), differ
 
     diffs = {"repeat_bf16": compare("disparity - a repeat of the same run (printed)", disp,
                                     run(cfg), None),
@@ -1423,8 +1495,16 @@ def run_fullres() -> dict:
         diffs["plain_bf16"] = compare("K1w's run - the plain version's in its place, bf16, "
                                       "deterministic", run(cfg), run(cfg, plain=True),
                                       BF16_MEAN_TOL, mean=True)
+        unfused_f32 = run(replace(cf, fused_update=False))
         diffs["unfused_f32"] = compare("fused f32 run - the unfused f32 loop, deterministic",
-                                       run(cf), run(replace(cf, fused_update=False)), DISP_ATOL)
+                                       run(cf), unfused_f32, DISP_ATOL)
+        # what that gate tolerates: the plain version with another rounding
+        # of Q'·Mu in K1w's place (printed): why K1w's f32 path repeats the
+        # plain version's arithmetic instead of a tensor-core product
+        for key, fn in (("split_k_f32", plain_split_k), ("f64_rounded_f32", plain_f64)):
+            diffs[key] = compare(f"fused f32 run with the plain version's {key} variant in K1w's "
+                                 "place - the unfused f32 loop, deterministic (printed)",
+                                 run(cf, update=fn), unfused_f32, None)
     finally:
         torch.use_deterministic_algorithms(False)
 
@@ -1435,7 +1515,8 @@ def run_fullres() -> dict:
     crop_card = crf_stereo_infer(lc, rc, ccfg, device=DEV)["disparity"]
     torch.cuda.synchronize()
     crop_k1w = fused_energy_update_wide.launches
-    check(crop_k1w == NITERS and fused_energy_update.launches == 0, "crop launches")
+    check(crop_k1w == NITERS and fused_energy_update.launches == 0
+          and fused_energy_update_wide_ffma.launches == 0, "crop launches")
     t0 = time.perf_counter()
     crop_cpu = crf_stereo_infer(lc, rc, ccfg, device="cpu")["disparity"]
     crop_cpu_s = time.perf_counter() - t0
@@ -1448,8 +1529,11 @@ def run_fullres() -> dict:
     crf_stereo_infer(left, right, cfg, device=DEV)  # warm-up
     ms = median_ms(lambda: crf_stereo_infer(left, right, cfg, device=DEV), 3)
     log(f"{tag}: warm pipeline {ms:.3f} ms (median of 3, CUDA events)")
-    busy_ms = profile(f"pipeline {tag}", lambda: crf_stereo_infer(left, right, cfg, device=DEV))
-    return {"launches_k1w": k1w, "launches_k1": k1, "ms": ms, "device_busy_ms": busy_ms,
+    busy_ms, k1w_ms = profile(f"pipeline {tag}",
+                              lambda: crf_stereo_infer(left, right, cfg, device=DEV),
+                              share_of="fused_energy_update_wide_kernel")
+    return {"launches_k1w": k1w, "launches_k1": k1, "launches_ffma": ffma, "ms": ms, "device_busy_ms": busy_ms,
+            "k1w_device_ms": k1w_ms, "k1w_share": k1w_ms / busy_ms if busy_ms else None,
             "first_s": first_s, "calibrate_s": calib_s, "tiled": tiled, "tile_u": cfg.tile_u,
             "max_vertices": cfg.max_vertices, "sort_mode": cfg.sort_mode, "num_valid": num_valid,
             "peak_bytes": peak, "mean_max_abs_diff": diffs, "crop_max_abs_diff_cpu": crop_diff,
@@ -1463,6 +1547,7 @@ def main() -> int:
     from depth_estimation_torch.ops.cuda import meanfield as K
     from depth_estimation_torch.utils.build import build_all
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # plain versions on the card compute float32 products in float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1477,13 +1562,13 @@ def main() -> int:
     native_err = check_native()
 
     log("fused_energy_update against its plain version (K1 at L in "
-        f"{K.SUPPORTED_L}, K1w at every other L):")
+        f"{K.SUPPORTED_L}, K1w at every other L up to {K.WIDE_MAX_L}, K1w_ffma above):")
     n, n_full = H * W, FULL_H * FULL_W
     errs = {}
     for rows, L in ((n, LABELS), (n - 7, LABELS), (n, 8), (n, 32), (n, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             errs[rows, L, dtype] = check_fused_update(K, rows, L, dtype)
-    for L in WIDE_CHECK_L:
+    for L in WIDE_CHECK_L + WIDE_EDGE_L + FFMA_CHECK_L:
         for rows in (n, n - 7):
             for dtype in (torch.float32, torch.bfloat16):
                 errs[rows, L, dtype] = check_fused_update(K, rows, L, dtype)
@@ -1497,6 +1582,15 @@ def main() -> int:
                   for key, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
     w_full = {dt: time_fused_update(K, n_full, FULL_LABELS, dtype, on_device=True)
               for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    # the FFMA design K1w replaced, on the same inputs and card: a yardstick
+    w_ffma = {dt: time_fused_update(K, n_full, FULL_LABELS, dtype, on_device=True,
+                                    kernel="K1w_ffma")
+              for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    # K1w against K1w_ffma at the ends of K1w's range, on fullres128's rows
+    w_by_L = {f"{kernel}_L{L}_{dt}": time_fused_update(K, n_full, L, dtype, on_device=True,
+                                                       kernel=kernel)
+              for L in (24, 256) for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))
+              for kernel in ("K1w", "K1w_ffma")}
     w_flagship = {dt: time_fused_update(K, n, FULL_LABELS, dtype)
                   for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
 
@@ -1519,7 +1613,10 @@ def main() -> int:
     log(json.dumps({"ptxas": ptxas, "native_lattice_max_abs_err": native_err}))
     log(json.dumps({"geometry": {dt: vars(K.launch_geometry(n, LABELS, elt))
                                  for dt, elt in (("bf16", 2), ("f32", 4))},
-                    "geometry_wide": {L: vars(K.wide_geometry(n_full, L)) for L in WIDE_CHECK_L}}))
+                    "geometry_wide": {f"L{L}_{dt}": vars(K.wide_geometry(n_full, L, elt, sms))
+                                      for L in WIDE_CHECK_L for dt, elt in (("bf16", 2), ("f32", 4))},
+                    "geometry_wide_ffma": {L: vars(K.wide_ffma_geometry(n_full, L))
+                                           for L in FFMA_CHECK_L}}))
 
     k1 = {
         "name": "fused_energy_update", "route": "cuda",
@@ -1547,9 +1644,24 @@ def main() -> int:
         "max_abs_err_f32": errs[n_full, FULL_LABELS, torch.float32],
         "f32": w_full["f32"], f"n{n}_L{FULL_LABELS}": w_flagship,
         "max_abs_err_by_L": {f"L{L}_{str(dt)[6:]}": max(errs[n, L, dt], errs[n - 7, L, dt])
-                             for L in WIDE_CHECK_L for dt in (torch.float32, torch.bfloat16)},
-        "design": "a block per tile of rows, values read one by one, q in shared memory, "
-                  "Mu staged through shared memory in 64-row blocks, 4x4 FFMA tiles a thread",
+                             for L in WIDE_CHECK_L + WIDE_EDGE_L
+                             for dt in (torch.float32, torch.bfloat16)},
+        "k_device_share": k["k1w_share"], "by_L_n2088960": w_by_L,
+        "design": "persistent blocks with Mu in shared memory, a warp per tile of rows, "
+                  "E0/S/C staged by 16-byte cp.async during the previous tile's product; bf16: "
+                  "softmax in the registers of a tensor-core product (mma.sync) with q split "
+                  "into bf16 hi+lo, 16-byte stores; f32: the plain version's arithmetic bit "
+                  "for bit (PyTorch's warp-softmax order, in-order FFMA sum)",
+        # the FFMA design that served these L before (K1w_ffma, now L > 256 only),
+        # timed in this run on the same inputs; not on the main path
+        "yardstick_ffma": {
+            "name": "fused_energy_update_wide_ffma", "route": "cuda",
+            "source": "depth_estimation_torch/csrc/meanfield_wide_ffma.cu",
+            "launches_k": k["launches_ffma"], **w_ffma["bf16"], "f32": w_ffma["f32"],
+            "max_abs_err_by_L": {f"L{L}_{str(dt)[6:]}": max(errs[n, L, dt], errs[n - 7, L, dt])
+                                 for L in FFMA_CHECK_L for dt in (torch.float32, torch.bfloat16)},
+            "design": "a block per tile of rows, values read one by one, q in shared memory, "
+                      "Mu staged through shared memory in 64-row blocks, 4x4 FFMA tiles a thread"},
     }
     log(f"chip_smoke: the whole script took {time.perf_counter() - t_start:.1f} s")
     log(card_line())

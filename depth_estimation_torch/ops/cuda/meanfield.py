@@ -7,21 +7,34 @@ S = W·C and the compatibility-transformed beliefs C = Q·Mu:
 
     E  = E0 + (S − C),   Q' = softmax(−E),   C' = Q'·Mu
 
-Two hand-written kernels serve every label count L (`kernel_for`):
+Three hand-written kernels serve every label count L (`kernel_for`), each
+bound by the bytes it moves:
 
 - K1 (`csrc/meanfield.cu`) for L in `SUPPORTED_L`: each warp takes one
   tile of consecutive rows, loaded by coalesced 16-byte words, with Mu in
   registers; `launch_geometry` computes its tiles, grid and shared memory.
-- K1w (`csrc/meanfield_wide.cu`, `fused_energy_update_wide`) for every other
-  L: a block per tile of rows, values read one by one (any row width), q in
-  shared memory and Mu staged through it in blocks; `wide_geometry`
-  computes its tiles and shared memory.
+- K1w (`csrc/meanfield_wide.cu`, `fused_energy_update_wide`) for every
+  other L up to `WIDE_MAX_L`: persistent blocks hold Mu in shared memory;
+  each warp takes a tile of rows at a time, the next tile's loads in
+  flight by `cp.async`. In bf16 the softmax runs in the registers of
+  Q'·Mu on the tensor cores, q split into bf16 hi and lo terms so that it
+  keeps its f32 accuracy (Mu is exact in bf16); in f32 the arithmetic is
+  the plain version's, bit for bit on the H100 (PyTorch's warp-softmax
+  order, Q'·Mu summed over l in order by FFMA), since the f32 pipeline's
+  5e-3 px agreement with the unfused loop tolerates no other rounding.
+  `wide_geometry` computes its padded width, grid and shared memory
+  (`wide_config`: its instantiations).
+- K1w_ffma (`csrc/meanfield_wide_ffma.cu`, `fused_energy_update_wide_ffma`)
+  for L above `WIDE_MAX_L`: a block per tile of rows, q in shared memory
+  and Mu staged through it in blocks, the product on the FFMA pipes;
+  `wide_ffma_geometry` computes its tiles and shared memory.
 
-Both geometries are computed here, where the CPU tests reach them, and
+The geometries are computed here, where the CPU tests reach them, and
 re-checked by the C side. A CUDA tensor goes to a kernel or raises; a CPU
 tensor goes to `fused_energy_update_reference`. Each wrapper counts its own
 kernel's launches (`fused_energy_update.launches` for K1,
-`fused_energy_update_wide.launches` for K1w).
+`fused_energy_update_wide.launches` for K1w,
+`fused_energy_update_wide_ffma.launches` for K1w_ffma).
 """
 from __future__ import annotations
 
@@ -30,9 +43,10 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["fused_energy_update", "fused_energy_update_wide", "fused_energy_update_reference",
-           "kernel_for", "launch_geometry", "wide_geometry", "Geometry", "WideGeometry",
-           "SUPPORTED_L"]
+__all__ = ["fused_energy_update", "fused_energy_update_wide", "fused_energy_update_wide_ffma",
+           "fused_energy_update_reference", "kernel_for", "launch_geometry", "wide_geometry",
+           "wide_ffma_geometry", "wide_config", "Geometry", "WideGeometry", "WideFfmaGeometry",
+           "SUPPORTED_L", "WIDE_MAX_L"]
 
 SUPPORTED_L = (8, 16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -42,11 +56,15 @@ WARPS = 4  # warps in a block: 128 threads, __launch_bounds__(128, 4)
 TILE_WORDS = 128  # 16-byte words of each array in a warp tile: 4 a lane
 
 # K1w's geometry (must agree with csrc/meanfield_wide.cu)
-WIDE_THREADS = 256  # a block: __launch_bounds__(256, 2)
-WIDE_ROWS_PER_THREAD = 4  # rows of C' a thread carries
-WIDE_MU_ROWS = 64  # rows of Mu staged in shared memory at once
-WIDE_MAX_COL_CHUNK = 64  # columns of Mu staged at once
-WIDE_SMEM_TARGET = 100 * 1024  # a block's shared memory, where one q row fits
+WIDE_MAX_L = 256  # the largest L K1w serves; above it K1w_ffma
+WIDE_Q_STRIDE = 12  # f32: floats a label's 8 rows take in a warp's q tile
+
+# K1w_ffma's geometry (must agree with csrc/meanfield_wide_ffma.cu)
+WIDE_FFMA_THREADS = 256  # a block: __launch_bounds__(256, 2)
+WIDE_FFMA_ROWS_PER_THREAD = 4  # rows of C' a thread carries
+WIDE_FFMA_MU_ROWS = 64  # rows of Mu staged in shared memory at once
+WIDE_FFMA_MAX_COL_CHUNK = 64  # columns of Mu staged at once
+WIDE_FFMA_SMEM_TARGET = 100 * 1024  # a block's shared memory, where one q row fits
 MAX_SMEM = 232448  # the H100's opt-in limit a block (227 KB)
 
 
@@ -78,18 +96,83 @@ def launch_geometry(n: int, L: int, elt: int) -> Geometry:
 
 def kernel_for(L: int) -> str:
     """Which kernel serves L labels on the card: 'K1' for L in
-    SUPPORTED_L, 'K1w' for every other L ≥ 1."""
+    SUPPORTED_L, 'K1w' for every other L up to WIDE_MAX_L, 'K1w_ffma'
+    above it."""
     if L < 1:
         raise ValueError(f"L={L}: the update needs at least one label")
-    return "K1" if L in SUPPORTED_L else "K1w"
+    if L in SUPPORTED_L:
+        return "K1"
+    return "K1w" if L <= WIDE_MAX_L else "K1w_ffma"
+
+
+def wide_config(elt: int, lp: int) -> dict:
+    """K1w's instantiation for `elt`-byte values at LP = `lp` columns (its
+    `Cfg<T, LP>`): rows a warp's tile (bf16: one MMA row tile of 16; f32:
+    8), warps a block, blocks a SM (its __launch_bounds__), output columns
+    a block (`nb`) and the dynamic shared memory: Mu (bf16: its columns
+    transposed, rows padded to `stride` elements; f32: LP rows of nb), then
+    a staging buffer a warp (E0, S and C of a tile) and, in f32, a warp's q
+    tile (LP labels of WIDE_Q_STRIDE floats)."""
+    if elt == 2:
+        cfg = dict(rows=16, warps={32: 8, 64: 8, 128: 12, 256: 3}[lp],
+                   min_blocks=2 if lp <= 64 else 1, nb=lp,
+                   stride=lp if lp % 64 == 32 else lp + 32)
+        mu, q = cfg["nb"] * cfg["stride"] * 2, 0
+    else:
+        cfg = dict(rows=8, warps={32: 8, 64: 16, 128: 20, 256: 8}[lp],
+                   min_blocks=2 if lp <= 32 else 1, nb=min(lp, 128))
+        mu, q = lp * cfg["nb"] * 4, lp * WIDE_Q_STRIDE * 4
+    staged = 3 * cfg["rows"] * lp * elt if elt == 2 else 0
+    cfg["smem_bytes"] = mu + cfg["warps"] * (staged + q)
+    return cfg
 
 
 @dataclass(frozen=True)
 class WideGeometry:
-    """A launch of K1w: `num_tiles` blocks of WIDE_THREADS threads, block b
+    """A launch of K1w: a grid of `grid_x` × `grid_y` blocks of `warps`
+    warps. L is padded to `lp` columns (32, 64, 128 or 256: the kernel's
+    instantiation); grid_y blocks of `nb` output columns each hold their
+    part of Mu, and each warp its buffers, in `smem_bytes` of dynamic
+    shared memory. The grid_x persistent blocks of a column block (at most
+    `min_blocks` on an SM) walk the `num_tiles` tiles of `rows` rows, one
+    warp a tile at a time."""
+
+    lp: int
+    rows: int
+    nb: int
+    warps: int
+    min_blocks: int
+    num_tiles: int
+    grid_x: int
+    grid_y: int
+    smem_bytes: int
+
+
+def wide_geometry(n: int, L: int, elt: int, sms: int) -> WideGeometry:
+    """K1w's geometry for (n, L) rows of `elt`-byte values on a card of
+    `sms` SMs: LP the power of two ≥ max(L, 32), as many persistent blocks
+    as the SMs hold (`min_blocks` each) or the tiles need. Raises above
+    WIDE_MAX_L, where Mu's planes leave no room (K1w_ffma's L)."""
+    if n < 1:
+        raise ValueError(f"n={n}: the kernel needs at least one row")
+    if not 1 <= L <= WIDE_MAX_L:
+        raise ValueError(f"L={L}: K1w serves 1 to {WIDE_MAX_L} labels")
+    lp = 32
+    while lp < L:
+        lp *= 2
+    cfg = wide_config(elt, lp)
+    num_tiles = -(-n // cfg["rows"])
+    grid_x = min(sms * cfg["min_blocks"], -(-num_tiles // cfg["warps"]))
+    return WideGeometry(lp, cfg["rows"], cfg["nb"], cfg["warps"], cfg["min_blocks"], num_tiles,
+                        grid_x, lp // cfg["nb"], cfg["smem_bytes"])
+
+
+@dataclass(frozen=True)
+class WideFfmaGeometry:
+    """A launch of K1w_ffma: `num_tiles` blocks of WIDE_FFMA_THREADS threads, block b
     computing rows [b·tile_rows, (b + 1)·tile_rows) that are < n. Its
     dynamic shared memory (`smem_bytes`) holds the tile's q in f32, rows of
-    `q_stride` floats, and one block of WIDE_MU_ROWS × `col_chunk` of Mu."""
+    `q_stride` floats, and one block of WIDE_FFMA_MU_ROWS × `col_chunk` of Mu."""
 
     tile_rows: int
     q_stride: int
@@ -98,29 +181,29 @@ class WideGeometry:
     smem_bytes: int
 
 
-def wide_geometry(n: int, L: int) -> WideGeometry:
-    """K1w's geometry for (n, L) rows: Mu columns in chunks of the power of
+def wide_ffma_geometry(n: int, L: int) -> WideFfmaGeometry:
+    """K1w_ffma's geometry for (n, L) rows: Mu columns in chunks of the power of
     two ≥ L (4 to 64; four columns a thread), as many rows a tile as the
-    threads carry (WIDE_ROWS_PER_THREAD each) while the tile's q and a Mu
-    block fit WIDE_SMEM_TARGET, and at least one row. Raises where one row
+    threads carry (WIDE_FFMA_ROWS_PER_THREAD each) while the tile's q and a Mu
+    block fit WIDE_FFMA_SMEM_TARGET, and at least one row. Raises where one row
     of q and a Mu block exceed the card's shared memory (L > 54,012)."""
     if n < 1:
         raise ValueError(f"n={n}: the kernel needs at least one row")
     if L < 1:
         raise ValueError(f"L={L}: the kernel needs at least one label")
     col_chunk = 4
-    while col_chunk < min(L, WIDE_MAX_COL_CHUNK):
+    while col_chunk < min(L, WIDE_FFMA_MAX_COL_CHUNK):
         col_chunk *= 2
     q_stride = -(-L // 4) * 4 + 4  # whole float4s, plus 4 against bank conflicts
-    mu_bytes = WIDE_MU_ROWS * col_chunk * 4
-    carried = WIDE_THREADS // (col_chunk // 4) * WIDE_ROWS_PER_THREAD
-    fit = (WIDE_SMEM_TARGET - mu_bytes) // (q_stride * 4)
+    mu_bytes = WIDE_FFMA_MU_ROWS * col_chunk * 4
+    carried = WIDE_FFMA_THREADS // (col_chunk // 4) * WIDE_FFMA_ROWS_PER_THREAD
+    fit = (WIDE_FFMA_SMEM_TARGET - mu_bytes) // (q_stride * 4)
     tile_rows = max(1, min(carried, fit))
     smem = tile_rows * q_stride * 4 + mu_bytes
     if smem > MAX_SMEM:
         raise ValueError(f"L={L}: one row of q and a block of Mu need {smem} bytes of shared "
                          f"memory, over the card's {MAX_SMEM}")
-    return WideGeometry(tile_rows, q_stride, col_chunk, -(-n // tile_rows), smem)
+    return WideFfmaGeometry(tile_rows, q_stride, col_chunk, -(-n // tile_rows), smem)
 
 
 def fused_energy_update_reference(E0, S, C, Mu):
@@ -167,12 +250,16 @@ def fused_energy_update(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
                         Mu: torch.Tensor):
     """(E, C') from (n, L) E0, S, C and (L, L) Mu, all of one dtype
     (float32 or bfloat16) and on one device. On the card, L in SUPPORTED_L
-    launches K1 and every other L launches K1w (`kernel_for`)."""
+    launches K1, every other L up to WIDE_MAX_L K1w and a larger L
+    K1w_ffma (`kernel_for`)."""
     if E0.device.type == "cpu":
         return fused_energy_update_reference(E0, S, C, Mu)
     n, L = _checked(E0, S, C, Mu)
-    if kernel_for(L) == "K1w":
+    kernel = kernel_for(L)
+    if kernel == "K1w":
         return fused_energy_update_wide(E0, S, C, Mu)
+    if kernel == "K1w_ffma":
+        return fused_energy_update_wide_ffma(E0, S, C, Mu)
     for name, x in (("E0", E0), ("S", S), ("C", C), ("Mu", Mu)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -193,10 +280,15 @@ def fused_energy_update(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
     return E, Cn
 
 
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def fused_energy_update_wide(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
                              Mu: torch.Tensor):
     """K1w's wrapper: (E, C') as `fused_energy_update` computes them, at any
-    L ≥ 1 (up to 54,012) and any row alignment."""
+    L from 1 to WIDE_MAX_L and any row alignment (rows of a multiple of 16
+    bytes, 16-byte aligned, move as 16-byte words; others value by value)."""
     if E0.device.type == "cpu":
         return fused_energy_update_reference(E0, S, C, Mu)
     n, L = _checked(E0, S, C, Mu)
@@ -205,17 +297,42 @@ def fused_energy_update_wide(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
     if n == 0:
         return E, Cn
     with torch.cuda.device(E0.device):
-        g = wide_geometry(n, L)
+        g = wide_geometry(n, L, E0.element_size(), _sms(E0.device))
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib("meanfield_wide", "fused_energy_update_wide_launch", 7)(
+        err = _lib("meanfield_wide", "fused_energy_update_wide_launch", 6)(
             E0.data_ptr(), S.data_ptr(), C.data_ptr(), Mu.data_ptr(), E.data_ptr(),
-            Cn.data_ptr(), n, L, _DTYPES[E0.dtype], g.tile_rows, g.q_stride, g.col_chunk,
-            g.num_tiles, g.smem_bytes, stream)
+            Cn.data_ptr(), n, L, _DTYPES[E0.dtype], g.lp, g.grid_x, g.grid_y, g.smem_bytes,
+            stream)
     if err != 0:
         raise RuntimeError(f"fused_energy_update_wide launch failed: cudaError {err}")
     fused_energy_update_wide.launches += 1
     return E, Cn
 
 
+def fused_energy_update_wide_ffma(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
+                                  Mu: torch.Tensor):
+    """K1w_ffma's wrapper: (E, C') as `fused_energy_update` computes them, at
+    any L ≥ 1 (up to 54,012) and any row alignment."""
+    if E0.device.type == "cpu":
+        return fused_energy_update_reference(E0, S, C, Mu)
+    n, L = _checked(E0, S, C, Mu)
+    E = torch.empty_like(E0)
+    Cn = torch.empty_like(E0)
+    if n == 0:
+        return E, Cn
+    with torch.cuda.device(E0.device):
+        g = wide_ffma_geometry(n, L)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib("meanfield_wide_ffma", "fused_energy_update_wide_ffma_launch", 7)(
+            E0.data_ptr(), S.data_ptr(), C.data_ptr(), Mu.data_ptr(), E.data_ptr(),
+            Cn.data_ptr(), n, L, _DTYPES[E0.dtype], g.tile_rows, g.q_stride, g.col_chunk,
+            g.num_tiles, g.smem_bytes, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_energy_update_wide_ffma launch failed: cudaError {err}")
+    fused_energy_update_wide_ffma.launches += 1
+    return E, Cn
+
+
 fused_energy_update.launches = 0  # K1's launches, for run-time path checks
 fused_energy_update_wide.launches = 0  # K1w's launches
+fused_energy_update_wide_ffma.launches = 0  # K1w_ffma's launches

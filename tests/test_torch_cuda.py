@@ -1,5 +1,5 @@
-"""The PyTorch port's CUDA kernels (K1 and K1w) against their plain
-versions, on a card.
+"""The PyTorch port's CUDA kernels (K1, K1w and K1w_ffma) against their
+plain versions, on a card.
 
 These tests import neither JAX nor the JAX package, so a GPU machine without
 JAX runs them, skipping the JAX-specific conftest:
@@ -29,7 +29,8 @@ def _check(arrays, dtype):
     """One launch of the kernel that `kernel_for(L)` names, counted once on
     its own counter, against the plain version on the same inputs."""
     arrays = [torch.from_numpy(a).to("cuda", dtype) for a in arrays]
-    counters = {"K1": T.fused_energy_update, "K1w": T.fused_energy_update_wide}
+    counters = {"K1": T.fused_energy_update, "K1w": T.fused_energy_update_wide,
+                "K1w_ffma": T.fused_energy_update_wide_ffma}
     before = {k: f.launches for k, f in counters.items()}
     E_k, C_k = T.fused_energy_update(*arrays)
     torch.cuda.synchronize()
@@ -77,7 +78,7 @@ def test_cuda_kernel_at_the_edges_of_its_geometry(case, L, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L", T.SUPPORTED_L)
+@pytest.mark.parametrize("L", T.SUPPORTED_L + (3, 24, 100, 128, 256, 300))
 def test_cuda_kernel_subtracts_the_max_from_large_energies(L, dtype):
     """Energies of magnitude ~1e3: exp(-E) alone would underflow to 0 in f32."""
     _needs_card()
@@ -96,19 +97,76 @@ def test_wide_kernel_matches_plain_version(n, L, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [3, 12, 100])
-def test_wide_kernel_takes_rows_off_16_byte_alignment(L):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [15, 17, 31, 33, 63, 65, 127, 129, 255, 256, 257])
+def test_wide_kernel_at_the_mma_tile_edges(L, dtype):
+    """L around the padded widths LP (32, 64, 128, 256), the MMA's 16
+    labels and K1w's limit (257 goes to K1w_ffma), at a ragged row count."""
+    _needs_card()
+    _check(_inputs(8, 4099, L), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [24, 128, 256])
+@pytest.mark.parametrize("case", ["1", "15", "16", "17", "block-1", "block+1", "wave+5"])
+def test_wide_kernel_at_the_edges_of_its_geometry(case, L, dtype):
+    """Row counts around a warp's tile (16 rows in bf16, 8 in f32), around
+    one block's warps' tiles, and one wave of the persistent grid (every
+    warp one tile) plus 5 rows, so that some warps take a second, ragged
+    tile."""
+    _needs_card()
+    elt = torch.tensor([], dtype=dtype).element_size()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = T.wide_geometry(1 << 24, L, elt, sms)
+    block = g.warps * g.rows
+    n = {"block-1": block - 1, "block+1": block + 1,
+         "wave+5": g.grid_x * block + 5}.get(case) or int(case)
+    _check(_inputs(9, n, L), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 3, 12, 24, 100, 128, 256, 300])
+@pytest.mark.parametrize("n", [1, 7, 110585])
+def test_wide_ffma_kernel_matches_plain_version(n, L, dtype):
+    """K1w_ffma, which serves L above WIDE_MAX_L, launched directly at the
+    label counts it served alone before K1w took L up to 256."""
+    _needs_card()
+    arrays = [torch.from_numpy(a).to("cuda", dtype) for a in _inputs(6, n, L)]
+    before = T.fused_energy_update_wide_ffma.launches
+    E_k, C_k = T.fused_energy_update_wide_ffma(*arrays)
+    torch.cuda.synchronize()
+    assert T.fused_energy_update_wide_ffma.launches == before + 1
+    E_r, C_r = T.fused_energy_update_reference(*arrays)
+    if dtype == torch.float32:
+        torch.testing.assert_close(E_k, E_r, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(C_k, C_r, rtol=1e-5, atol=1e-5)
+    else:
+        ulp = 2.0 ** (torch.floor(torch.log2(E_r.float().abs().clamp_min(1e-30))) - 7)
+        assert bool(((E_k.float() - E_r.float()).abs() <= ulp).all())
+        torch.testing.assert_close(C_k.float(), C_r.float(), rtol=0, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [3, 12, 100, 128, 256])
+def test_wide_kernel_takes_rows_off_16_byte_alignment(L, dtype):
     """Contiguous arrays that start one element into their storage: K1w
     reads and writes value by value (K1 would refuse them)."""
     _needs_card()
-    arrays = [torch.from_numpy(a).to("cuda", torch.bfloat16) for a in _inputs(7, 1001, L)]
+    arrays = [torch.from_numpy(a).to("cuda", dtype) for a in _inputs(7, 1001, L)]
     shifted = []
     for a in arrays:
         buf = torch.empty(a.numel() + 1, dtype=a.dtype, device="cuda")
         shifted.append(buf[1:].view(a.shape).copy_(a))
-    assert shifted[0].data_ptr() % 16 == 2
+    assert shifted[0].data_ptr() % 16 == shifted[0].element_size()
     E_k, C_k = T.fused_energy_update_wide(*shifted)
     E_r, C_r = T.fused_energy_update_reference(*arrays)
-    ulp = 2.0 ** (torch.floor(torch.log2(E_r.float().abs().clamp_min(1e-30))) - 7)
-    assert bool(((E_k.float() - E_r.float()).abs() <= ulp).all())
-    torch.testing.assert_close(C_k.float(), C_r.float(), rtol=0, atol=1e-2)
+    if dtype == torch.float32:
+        torch.testing.assert_close(E_k, E_r, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(C_k, C_r, rtol=1e-5, atol=1e-5)
+    else:
+        ulp = 2.0 ** (torch.floor(torch.log2(E_r.float().abs().clamp_min(1e-30))) - 7)
+        assert bool(((E_k.float() - E_r.float()).abs() <= ulp).all())
+        torch.testing.assert_close(C_k.float(), C_r.float(), rtol=0, atol=1e-2)
