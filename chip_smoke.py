@@ -6,7 +6,8 @@
 Drives the port's flagship stereo inference, `crf_stereo_infer` on a
 288×384 pair with 16 labels, a 5-D bilateral guide and 5 mean-field
 iterations, through both lattice plan paths, then its training path, its
-serving, multi-device, operator and detection paths, and fullres128:
+serving, multi-device, operator and detection paths, fullres128 and a
+wide-disparity frame:
 
   A. the bench configuration: calibrated capacity, 32-px tiles with bf16
      incidence blocks, bf16 mean-field state and the fused update, on a
@@ -78,7 +79,17 @@ serving, multi-device, operator and detection paths, and fullres128:
      port's CPU run (5e-3 px); a repeat of the run and the unfused bf16
      loop are printed (the bf16 state is noise-bound at 128 labels), as
      are the calibration, the warm pipeline (median of 3), one profile and
-     the peak device memory.
+     the peak device memory;
+  L. wide disparities: a 994x1482 synthetic pair (tools/bench_suite.py's
+     middlebury64 size; 6 layers, disparities to 318) at 320 labels, the
+     range of a half-size Middlebury 2014 frame, calibrated, bf16 and fused
+     as K: 5 K1x launches and no other kernel's, a finite disparity; under
+     deterministic algorithms the same run with K1x's plain version in its
+     place within 0.1 px (mean) and, in float32, the unfused loop within
+     5e-3 px; its 96x384 crop (wider than L) in float32 against the port's
+     CPU run (5e-3 px); the calibration, the warm pipeline with K1x and
+     with K1w_ffma launched in its place (median of 3 each), one profile
+     and the peak device memory are printed.
 
 It builds the CUDA kernels from `depth_estimation_torch/csrc` and the C++
 CPU lattice (one compiler per source, all at once), prints what `ptxas`
@@ -87,11 +98,13 @@ more registers than the kernel's own __launch_bounds__ allow, or any spill,
 fails), holds each kernel against its plain PyTorch version on the card
 (K1 at 8 to 64 labels; K1w, the tensor-core kernel, at 3, 12, 24, 100, 128
 and 256 labels, at the edges of its padded widths and at fullres128's
-shape; K1w_ffma, which serves L above 256, at 257 and 300) and times them
-(K1w_ffma also at fullres128's rows with 24, 128 and 256 labels, as the
-yardstick of the FFMA design K1w replaced there), counts the kernels' launches in every phase (A, B, E and F
-launch K1 5 times a frame, K launches K1w 5 times, the others launch none
-of them), and checks each
+shape; K1x at 257, 288, 300, 320, 384, 512, 1000 and 1024 labels; K1w_ffma,
+which serves L above 1024, at 1025 and, launched directly, at 257 and 300)
+and times them (K1w_ffma also at fullres128's rows with 24, 128 and 256
+labels, as the yardstick of the FFMA design K1w replaced there, and at
+phase L's shape beside K1x), counts the kernels' launches in every phase
+(A, B, E and F launch K1 5 times a frame, K launches K1w 5 times, L K1x 5
+times, the others launch none of them), and checks each
 pipeline's disparity against the same pipeline without the kernel on the
 card and against the port's own CPU run (the path the CPU tests hold
 against the JAX package). Any failed check raises. The last lines are the
@@ -171,10 +184,21 @@ FULL_H, FULL_W, FULL_LABELS, FULL_MAX_DISP = 1088, 1920, 128, 96
 FULL_INCIDENCE_BYTES = 4 << 30  # the bench's budget for the f32-denominated tables
 CROP_H, CROP_W = 192, 256
 # the label counts at which K1w is held against its plain version, and the
-# edges of its padded widths (32, 64, 128, 256) and of its limit; K1w_ffma's
+# edges of its padded widths (32, 64, 128, 256) and of its limit; K1x's
+# (XWIDE_MAX_L, 1024, is checked too); K1w_ffma's, launched directly at L
+# that K1x serves, and through the dispatch above XWIDE_MAX_L
 WIDE_CHECK_L = (3, 12, 24, 100, 128, 256)
 WIDE_EDGE_L = (1, 17, 33, 65, 127, 129, 255)
+XWIDE_CHECK_L = (257, 288, 300, 320, 384, 512, 1000)
 FFMA_CHECK_L = (257, 300)
+FFMA_ROUTED_L = 1025
+# L: wide disparities, a half-size Middlebury 2014 frame (tools/bench_suite.py's
+# middlebury64 size, 994x1482) at the 320 labels that Jadeplant's ndisp=640
+# becomes at half size; the 6-layer synthetic pair the bench takes without a
+# Middlebury pair; calibrated as the bench calibrates; its 96x384 crop (wider
+# than L) in float32 against the port's CPU run
+MID_H, MID_W, MID_LABELS = 994, 1482, 320
+MID_CROP_H, MID_CROP_W = 96, 384
 
 
 def log(msg: str) -> None:
@@ -215,21 +239,35 @@ def counters() -> dict:
     from depth_estimation_torch.ops.cuda import meanfield as K
 
     return {"K1": K.fused_energy_update, "K1w": K.fused_energy_update_wide,
-            "K1w_ffma": K.fused_energy_update_wide_ffma}
+            "K1x": K.fused_energy_update_xwide, "K1w_ffma": K.fused_energy_update_wide_ffma}
 
 
 def zero_launches() -> None:
-    """Set the launch counts of the fused-update kernels (K1, K1w and
+    """Set the launch counts of the fused-update kernels (K1, K1w, K1x and
     K1w_ffma) to 0."""
     for fn in counters().values():
         fn.launches = 0
 
 
+def launches() -> dict:
+    """Each fused-update kernel's launches since `zero_launches`."""
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def only_launched(name: str, want: int) -> int:
+    """Check that `name` launched `want` times since `zero_launches` and no
+    other fused-update kernel launched; returns its count."""
+    got = launches()
+    check(got == {k: want if k == name else 0 for k in got},
+          f"launches {got}, want {want} of {name} and none of the others")
+    return got[name]
+
+
 def k1_launches() -> int:
     """K1's launches since `zero_launches`; a path at the repo's label
-    counts of 8 to 64 must have launched K1w and K1w_ffma no time."""
+    counts of 8 to 64 must have launched K1w, K1x and K1w_ffma no time."""
     wrappers = counters()
-    for name in ("K1w", "K1w_ffma"):
+    for name in ("K1w", "K1x", "K1w_ffma"):
         check(wrappers[name].launches == 0, f"{name} launched {wrappers[name].launches} times")
     return wrappers["K1"].launches
 
@@ -250,6 +288,8 @@ def _ptxas(name: str, pattern: str) -> dict:
         k = re.search(pattern, line)  # the mangled name opens an instantiation's lines
         if k:
             cur = found.setdefault(k.groups(), {})
+        elif "Compiling entry function" in line or "Function properties for" in line:
+            cur = None  # another kernel's lines (a source may hold several)
         elif cur is not None and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
             cur.update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
@@ -270,10 +310,12 @@ def register_cap(threads: int, min_blocks: int) -> int:
 def ptxas_report(K) -> list[dict]:
     """Registers, static shared memory and spills of every instantiation of
     the fused update: K1 (<L, float or bfloat16>, __launch_bounds__(128,
-    4)), K1w (<float or bfloat16, LP>, its bounds from `wide_config`) and
-    K1w_ffma (<float or bfloat16>, (256, 2)), each held to its own
-    register cap, with the dynamic shared memory of K1's launch at the
-    flagship row count and of the K1w kernels' at fullres128's row count."""
+    4)), K1w (<float or bfloat16, LP>, its bounds from `wide_config`), K1x
+    (<float or bfloat16, rows a tile, values a lane>, (its threads, 1); and
+    its Mu-tiling pass, no bounds) and K1w_ffma (<float or bfloat16>, (256,
+    2)), each held to its own register cap, with the dynamic shared memory
+    of K1's launch at the flagship row count, of the K1w kernels' at
+    fullres128's row count and of K1x's at phase L's."""
     dtname = {"f": "f32", "13__nv_bfloat16": "bf16"}
     elts = {"f": 4, "13__nv_bfloat16": 2}
     n_full = FULL_H * FULL_W
@@ -281,6 +323,10 @@ def ptxas_report(K) -> list[dict]:
     k1 = _ptxas("meanfield", r"fused_energy_update_kernelILi(\d+)E(f|13__nv_bfloat16)E")
     k1w = _ptxas("meanfield_wide", r"fused_energy_update_wide_kernelI(f|13__nv_bfloat16)Li(\d+)E")
     ffma = _ptxas("meanfield_wide_ffma", r"fused_energy_update_wide_ffma_kernelI(f|13__nv_bfloat16)E")
+    k1x = _ptxas("meanfield_xwide",
+                 r"fused_energy_update_xwide_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
+    tile = _ptxas("meanfield_xwide",
+                  r"fused_energy_update_xwide_tile_mu_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
     wanted = [("K1", f"L={L}", dtname[m], k1.get((str(L), m)),
                K.launch_geometry(H * W, L, elts[m]).smem_bytes, register_cap(128, 4))
               for L in K.SUPPORTED_L for m in dtname]
@@ -290,6 +336,17 @@ def ptxas_report(K) -> list[dict]:
             wanted.append(("K1w", f"LP={lp}", dtname[m], k1w.get((m, str(lp))),
                            K.wide_geometry(n_full, lp, elts[m], sms).smem_bytes,
                            register_cap(cfg["warps"] * 32, cfg["min_blocks"])))
+    for m in dtname:  # (rows a tile, values a lane) at an L that launches each
+        for rows, per_lane, L in ((64, 10, 320), (32, 16, 512), (32, 32, 640), (16, 32, 1024)):
+            g = K.xwide_geometry(MID_H * MID_W, L, elts[m], sms)
+            check(g.rows == rows, f"K1x at L={L} {dtname[m]}: {g.rows} rows a tile, want {rows}")
+            wanted.append(("K1x", f"R={rows} it={per_lane}", dtname[m],
+                           k1x.get((m, str(rows), str(per_lane))), g.smem_bytes,
+                           register_cap(g.threads, 1)))
+        # its Mu-tiling pass: (labels, columns) a stage
+        for kt, nc in ((32, 160), (32, 64)) if m != "f" else ((32, 64), (16, 64)):
+            wanted.append(("K1x tile_mu", f"kKt={kt} kNc={nc}", dtname[m],
+                           tile.get((m, str(kt), str(nc))), 0, 255))
     wanted += [("K1w_ffma", "any L", dtname[m], ffma.get((m,)),
                 K.wide_ffma_geometry(n_full, FULL_LABELS).smem_bytes, register_cap(256, 2))
                for m in dtname]
@@ -323,17 +380,20 @@ def kernel_inputs(n: int, L: int, dtype, seed: int = 0, on_device: bool = False)
     return [torch.from_numpy(a.astype(np.float32)).to(DEV, dtype) for a in arrays]
 
 
-def check_fused_update(K, n: int, L: int, dtype, on_device: bool = False) -> float:
+def check_fused_update(K, n: int, L: int, dtype, on_device: bool = False,
+                       kernel: str | None = None) -> float:
     """Kernel against plain version, with the kernel that `kernel_for(L)`
-    names launched once; returns the largest |difference|."""
+    names (or `kernel`, through its own wrapper) launched once; returns the
+    largest |difference|."""
     args = kernel_inputs(n, L, dtype, on_device=on_device)
     wrappers = counters()
+    want = kernel or K.kernel_for(L)
     before = {k: f.launches for k, f in wrappers.items()}
-    E_k, C_k = K.fused_energy_update(*args)
+    E_k, C_k = (wrappers[kernel] if kernel else K.fused_energy_update)(*args)
     torch.cuda.synchronize()
     launched = {k: f.launches - before[k] for k, f in wrappers.items()}
-    check(launched == {k: int(k == K.kernel_for(L)) for k in wrappers},
-          f"n={n} L={L}: launches {launched}, want one of {K.kernel_for(L)}")
+    check(launched == {k: int(k == want) for k in wrappers},
+          f"n={n} L={L}: launches {launched}, want one of {want}")
     E_r, C_r = K.fused_energy_update_reference(*args)
     if dtype == torch.float32:
         torch.testing.assert_close(E_k, E_r, **F32_TOL)
@@ -346,7 +406,7 @@ def check_fused_update(K, n: int, L: int, dtype, on_device: bool = False) -> flo
         torch.testing.assert_close(C_k.float(), C_r.float(), rtol=0, atol=1e-2)
     err = max(float((E_k.float() - E_r.float()).abs().max()),
               float((C_k.float() - C_r.float()).abs().max()))
-    log(f"  {K.kernel_for(L)} n={n} L={L} {str(dtype)[6:]}: max |kernel - plain| = {err:.3g}")
+    log(f"  {want} n={n} L={L} {str(dtype)[6:]}: max |kernel - plain| = {err:.3g}")
     return err
 
 
@@ -373,7 +433,10 @@ def time_fused_update(K, n: int, L: int, dtype, on_device: bool = False,
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
     ops_ms = (n * 2 * L * L / PEAK_BF16_TC_FLOP_S + n * 6 * L / PEAK_F32_FLOP_S) * 1e3
     out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           # q·Mu on the f32 FFMA pipes, where f32 must sum it (the plain
+           # version's order): the floor of an f32 kernel that keeps it
+           "ffma_floor_ms": n * 2 * L * L / PEAK_F32_FLOP_S * 1e3}
     log(f"  time {kernel} n={n} L={L} {str(dtype)[6:]}: kernel {ms * 1e3:.2f} us, plain "
         f"{plain_ms * 1e3:.2f} us, bound {out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}: "
         f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
@@ -1406,9 +1469,7 @@ def run_fullres() -> dict:
     from depth_estimation_torch.models import pipeline as P
     from depth_estimation_torch.models.pipeline import crf_stereo_infer
     from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
-                                                           fused_energy_update_reference,
-                                                           fused_energy_update_wide,
-                                                           fused_energy_update_wide_ffma)
+                                                           fused_energy_update_reference)
     from depth_estimation_torch.train.metrics import bad_pixel_ratio, epe
 
     tag = f"K (fullres128, {FULL_H}x{FULL_W}, L={FULL_LABELS}, bf16, fused)"
@@ -1431,13 +1492,12 @@ def run_fullres() -> dict:
     out = crf_stereo_infer(left, right, cfg, device=DEV)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    k1, k1w = fused_energy_update.launches, fused_energy_update_wide.launches
-    ffma = fused_energy_update_wide_ffma.launches
+    got = launches()
+    k1, k1w, ffma = got["K1"], got["K1w"], got["K1w_ffma"]
     peak = torch.cuda.max_memory_allocated()
-    log(f"{tag}: first run {first_s:.2f} s; launches in one run: K1w {k1w}, K1 {k1}, K1w_ffma "
-        f"{ffma}; peak device memory {peak / 2**30:.2f} GiB")
-    check(k1w == NITERS and k1 == 0 and ffma == 0,
-          f"K1w {k1w}, K1 {k1} and K1w_ffma {ffma} launches, want {NITERS}, 0 and 0")
+    log(f"{tag}: first run {first_s:.2f} s; launches in one run: {got}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    only_launched("K1w", NITERS)
     plan = out["plans"][0]
     num_valid = int(plan.num_valid)
     overflow = 0 if plan.tile_overflow is None else int(plan.tile_overflow)  # tiled plans only
@@ -1514,9 +1574,7 @@ def run_fullres() -> dict:
     zero_launches()
     crop_card = crf_stereo_infer(lc, rc, ccfg, device=DEV)["disparity"]
     torch.cuda.synchronize()
-    crop_k1w = fused_energy_update_wide.launches
-    check(crop_k1w == NITERS and fused_energy_update.launches == 0
-          and fused_energy_update_wide_ffma.launches == 0, "crop launches")
+    crop_k1w = only_launched("K1w", NITERS)
     t0 = time.perf_counter()
     crop_cpu = crf_stereo_infer(lc, rc, ccfg, device="cpu")["disparity"]
     crop_cpu_s = time.perf_counter() - t0
@@ -1538,6 +1596,137 @@ def run_fullres() -> dict:
             "max_vertices": cfg.max_vertices, "sort_mode": cfg.sort_mode, "num_valid": num_valid,
             "peak_bytes": peak, "mean_max_abs_diff": diffs, "crop_max_abs_diff_cpu": crop_diff,
             "crop_launches_k1w": crop_k1w}
+
+
+def wide_disparity_config(left, labels: int, tiled: bool = True):
+    """Phase L's config for `left`, calibrated as the bench calibrates
+    fullres128 (capacity at headroom 3, 32-px tiles within the incidence
+    budget, bf16 incidence blocks where tiled)."""
+    from depth_estimation_torch.models.pipeline import CRFStereoConfig, calibrate_capacity
+
+    cfg = calibrate_capacity(left, CRFStereoConfig(num_disp=labels, niters=NITERS),
+                             headroom=3.0, tiled=tiled, max_incidence_bytes=FULL_INCIDENCE_BYTES,
+                             device=DEV)
+    return replace(cfg, tile_bf16=cfg.tile_px is not None)
+
+
+def run_wide_disparity() -> dict:
+    """L: a half-size Middlebury frame at 320 labels with bf16 state and the
+    fused update: 5 launches of K1x and none of the other kernels, a finite
+    disparity, within BF16_MEAN_TOL of the same run with K1x's plain version
+    in its place, the fused loop within DISP_ATOL of the unfused one in
+    float32, the 96x384 crop in float32 against the CPU; the warm pipeline
+    with K1x and with K1w_ffma in its place, one profile, peak memory."""
+    from depth_estimation_torch.data.synthetic import make_stereo_pair
+    from depth_estimation_torch.models import pipeline as P
+    from depth_estimation_torch.models.pipeline import crf_stereo_infer
+    from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
+                                                           fused_energy_update_reference,
+                                                           fused_energy_update_wide_ffma)
+
+    tag = f"L (wide disparity, {MID_H}x{MID_W}, L={MID_LABELS}, bf16, fused)"
+    left, right, gt = make_stereo_pair(np.random.RandomState(0), MID_H, MID_W, num_layers=6,
+                                       max_disp=MID_LABELS - 2)
+    left, right = left.astype(np.float32), right.astype(np.float32)
+    t0 = time.perf_counter()
+    cfg = wide_disparity_config(left, MID_LABELS)
+    calib_s = time.perf_counter() - t0
+    cfg = replace(cfg, compute_dtype="bf16", fused_update=True)
+    tiled = cfg.tile_px is not None
+    log(f"{tag}: calibrated in {calib_s:.2f} s: tiled={tiled} tile_px={cfg.tile_px} "
+        f"tile_u={cfg.tile_u} max_vertices={cfg.max_vertices} sort_mode={cfg.sort_mode} "
+        f"tile_bf16={cfg.tile_bf16}")
+
+    # the main path: launch counts read from zero just around one run
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = crf_stereo_infer(left, right, cfg, device=DEV)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = launches()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag}: first run {first_s:.2f} s; launches in one run: {got}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    k1x = only_launched("K1x", NITERS)
+    plan = out["plans"][0]
+    overflow = 0 if plan.tile_overflow is None else int(plan.tile_overflow)
+    check(overflow == 0 and int(plan.num_valid) <= cfg.max_vertices, "capacity overflow")
+    disp = out["disparity"]
+    check(disp.shape == (MID_H, MID_W) and disp.device.type == DEV, "disparity shape or device")
+    check(bool(torch.isfinite(disp).all()), "non-finite disparity")
+    del out, plan, disp
+
+    def run(c, update=None):
+        if update is not None:
+            P.fused_energy_update = update
+        try:
+            return crf_stereo_infer(left, right, c, device=DEV)["disparity"].float().cpu()
+        finally:
+            P.fused_energy_update = fused_energy_update
+
+    def compare(what, a, b, tol, mean=False):
+        d = (a - b).abs()
+        log(f"{tag}: |{what}| max {float(d.max()):.3g} px, mean {float(d.mean()):.3g} px, "
+            f"{int((d > 0).sum())} of {d.numel()} pixels differ (gate: "
+            f"{'mean' if mean else 'max'} <= {tol})")
+        check(float(d.mean() if mean else d.max()) <= tol, f"{what} over {tol} px")
+        return float(d.mean()), float(d.max())
+
+    # as in K: the bf16 state is held against the same run with the plain
+    # version in K1x's place, the fused f32 loop against the unfused one
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        diffs = {"plain_bf16": compare("K1x's run - the plain version's in its place, bf16, "
+                                       "deterministic", run(cfg),
+                                       run(cfg, fused_energy_update_reference), BF16_MEAN_TOL,
+                                       mean=True)}
+        cf = replace(cfg, compute_dtype="f32")
+        diffs["unfused_f32"] = compare("fused f32 run - the unfused f32 loop, deterministic",
+                                       run(cf), run(replace(cf, fused_update=False)), DISP_ATOL)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # the crop, wider than L, in float32 (state and incidence blocks), against the CPU
+    lc, rc = left[:MID_CROP_H, :MID_CROP_W], right[:MID_CROP_H, :MID_CROP_W]
+    ccfg = replace(wide_disparity_config(lc, MID_LABELS), tile_bf16=False, fused_update=True)
+    zero_launches()
+    crop_card = crf_stereo_infer(lc, rc, ccfg, device=DEV)["disparity"]
+    torch.cuda.synchronize()
+    crop_k1x = only_launched("K1x", NITERS)
+    t0 = time.perf_counter()
+    crop_cpu = crf_stereo_infer(lc, rc, ccfg, device="cpu")["disparity"]
+    crop_cpu_s = time.perf_counter() - t0
+    crop_diff = float((crop_card.cpu() - crop_cpu).abs().max())
+    log(f"{tag}: {MID_CROP_H}x{MID_CROP_W} crop in f32 (tile_px={ccfg.tile_px} tile_u="
+        f"{ccfg.tile_u}, K1x launches {crop_k1x}): |card - the port's CPU run| max "
+        f"{crop_diff:.3g} px (CPU run {crop_cpu_s:.1f} s)")
+    check(crop_diff <= DISP_ATOL, f"crop: max over {DISP_ATOL} px against the CPU")
+
+    # warm, with K1x and with K1w_ffma launched in its place (not gated)
+    def warm(update=None):
+        if update is not None:
+            P.fused_energy_update = update
+        try:
+            crf_stereo_infer(left, right, cfg, device=DEV)  # warm-up
+            return median_ms(lambda: crf_stereo_infer(left, right, cfg, device=DEV), 3)
+        finally:
+            P.fused_energy_update = fused_energy_update
+
+    ms = warm()
+    ms_ffma = warm(fused_energy_update_wide_ffma)
+    log(f"{tag}: warm pipeline {ms:.3f} ms with K1x, {ms_ffma:.3f} ms with K1w_ffma in its "
+        "place (median of 3, CUDA events)")
+    busy_ms, k1x_ms = profile(f"pipeline {tag}",
+                              lambda: crf_stereo_infer(left, right, cfg, device=DEV),
+                              share_of="fused_energy_update_xwide")
+    return {"launches_k1x": k1x, "launches": got, "ms": ms, "ms_with_k1w_ffma": ms_ffma,
+            "device_busy_ms": busy_ms, "k1x_device_ms": k1x_ms,
+            "k1x_share": k1x_ms / busy_ms if busy_ms else None, "first_s": first_s,
+            "calibrate_s": calib_s, "tiled": tiled, "tile_px": cfg.tile_px, "tile_u": cfg.tile_u,
+            "max_vertices": cfg.max_vertices, "sort_mode": cfg.sort_mode, "peak_bytes": peak,
+            "mean_max_abs_diff": diffs, "crop_max_abs_diff_cpu": crop_diff,
+            "crop_launches_k1x": crop_k1x}
 
 
 def main() -> int:
@@ -1562,19 +1751,29 @@ def main() -> int:
     native_err = check_native()
 
     log("fused_energy_update against its plain version (K1 at L in "
-        f"{K.SUPPORTED_L}, K1w at every other L up to {K.WIDE_MAX_L}, K1w_ffma above):")
-    n, n_full = H * W, FULL_H * FULL_W
+        f"{K.SUPPORTED_L}, K1w at every other L up to {K.WIDE_MAX_L}, K1x up to "
+        f"{K.XWIDE_MAX_L}, K1w_ffma above):")
+    n, n_full, n_mid = H * W, FULL_H * FULL_W, MID_H * MID_W
     errs = {}
     for rows, L in ((n, LABELS), (n - 7, LABELS), (n, 8), (n, 32), (n, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             errs[rows, L, dtype] = check_fused_update(K, rows, L, dtype)
-    for L in WIDE_CHECK_L + WIDE_EDGE_L + FFMA_CHECK_L:
+    for L in WIDE_CHECK_L + WIDE_EDGE_L + XWIDE_CHECK_L + (K.XWIDE_MAX_L,):
         for rows in (n, n - 7):
             for dtype in (torch.float32, torch.bfloat16):
                 errs[rows, L, dtype] = check_fused_update(K, rows, L, dtype)
-    for dtype in (torch.float32, torch.bfloat16):  # K1w at fullres128's shape
+    errs_ffma = {}
+    for L in FFMA_CHECK_L:  # K1w_ffma, launched directly, at L that K1x now serves
+        for rows in (n, n - 7):
+            for dtype in (torch.float32, torch.bfloat16):
+                errs_ffma[rows, L, dtype] = check_fused_update(K, rows, L, dtype, kernel="K1w_ffma")
+    for dtype in (torch.float32, torch.bfloat16):  # and through the dispatch above XWIDE_MAX_L
+        errs_ffma[n - 7, FFMA_ROUTED_L, dtype] = check_fused_update(K, n - 7, FFMA_ROUTED_L, dtype)
+    for dtype in (torch.float32, torch.bfloat16):  # K1w at fullres128's, K1x at phase L's shape
         errs[n_full, FULL_LABELS, dtype] = check_fused_update(K, n_full, FULL_LABELS, dtype,
                                                               on_device=True)
+        errs[n_mid, MID_LABELS, dtype] = check_fused_update(K, n_mid, MID_LABELS, dtype,
+                                                            on_device=True)
     t_bf16 = time_fused_update(K, n, LABELS, torch.bfloat16)
     t_f32 = time_fused_update(K, n, LABELS, torch.float32)
     t_wide = {f"bf16_L{L}": time_fused_update(K, n, L, torch.bfloat16) for L in (32, 64)}
@@ -1593,6 +1792,15 @@ def main() -> int:
               for kernel in ("K1w", "K1w_ffma")}
     w_flagship = {dt: time_fused_update(K, n, FULL_LABELS, dtype)
                   for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    # K1x at phase L's shape, beside K1w_ffma (the kernel that served it
+    # before) launched directly on the same inputs; and beside K1w at 256
+    x_mid = {dt: time_fused_update(K, n_mid, MID_LABELS, dtype, on_device=True)
+             for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    x_mid_ffma = {dt: time_fused_update(K, n_mid, MID_LABELS, dtype, on_device=True,
+                                        kernel="K1w_ffma")
+                  for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    x_256 = {dt: time_fused_update(K, n_full, 256, dtype, on_device=True, kernel="K1x")
+             for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
 
     a = run_pipeline("A (bench configuration, lean plan, bf16)", 0.5,
                      dict(tile_bf16=True, compute_dtype="bf16"), "packed1", f32=False)
@@ -1606,7 +1814,8 @@ def main() -> int:
     i = run_detection()
     j = run_detection_training()
     k = run_fullres()
-    log(json.dumps({"pipelines": {"A": a, "B": b, "E": e, "K": k}}))
+    wd = run_wide_disparity()
+    log(json.dumps({"pipelines": {"A": a, "B": b, "E": e, "K": k, "L": wd}}))
     log(json.dumps({"training": {"C": c, "D": d}}))
     log(json.dumps({"serving": {"F": f}, "world": {"G": g}, "operators": {"H": h}}))
     log(json.dumps({"detection": {"I": i, "J": j}}))
@@ -1615,8 +1824,11 @@ def main() -> int:
                                  for dt, elt in (("bf16", 2), ("f32", 4))},
                     "geometry_wide": {f"L{L}_{dt}": vars(K.wide_geometry(n_full, L, elt, sms))
                                       for L in WIDE_CHECK_L for dt, elt in (("bf16", 2), ("f32", 4))},
+                    "geometry_xwide": {f"L{L}_{dt}": vars(K.xwide_geometry(n_mid, L, elt, sms))
+                                       for L in XWIDE_CHECK_L + (K.XWIDE_MAX_L,)
+                                       for dt, elt in (("bf16", 2), ("f32", 4))},
                     "geometry_wide_ffma": {L: vars(K.wide_ffma_geometry(n_full, L))
-                                           for L in FFMA_CHECK_L}}))
+                                           for L in FFMA_CHECK_L + (FFMA_ROUTED_L,)}}))
 
     k1 = {
         "name": "fused_energy_update", "route": "cuda",
@@ -1652,20 +1864,47 @@ def main() -> int:
                   "softmax in the registers of a tensor-core product (mma.sync) with q split "
                   "into bf16 hi+lo, 16-byte stores; f32: the plain version's arithmetic bit "
                   "for bit (PyTorch's warp-softmax order, in-order FFMA sum)",
-        # the FFMA design that served these L before (K1w_ffma, now L > 256 only),
-        # timed in this run on the same inputs; not on the main path
+        # the FFMA design that served these L before (K1w_ffma, now L above
+        # XWIDE_MAX_L only), timed in this run on the same inputs; not on the main path
         "yardstick_ffma": {
             "name": "fused_energy_update_wide_ffma", "route": "cuda",
             "source": "depth_estimation_torch/csrc/meanfield_wide_ffma.cu",
-            "launches_k": k["launches_ffma"], **w_ffma["bf16"], "f32": w_ffma["f32"],
-            "max_abs_err_by_L": {f"L{L}_{str(dt)[6:]}": max(errs[n, L, dt], errs[n - 7, L, dt])
-                                 for L in FFMA_CHECK_L for dt in (torch.float32, torch.bfloat16)},
+            "launches_k": k["launches_ffma"], **w_ffma["bf16"], "f32": w_ffma["f32"]},
+    }
+    k1x = {
+        "name": "fused_energy_update_xwide", "route": "cuda",
+        "source": "depth_estimation_torch/csrc/meanfield_xwide.cu",
+        "replaces": "depth_estimation_tpu/ops/pallas/meanfield.py:55",
+        "launches": wd["launches_k1x"], "max_abs_err": errs[n_mid, MID_LABELS, torch.bfloat16],
+        **x_mid["bf16"], "library_ms": None,
+        "us": x_mid["bf16"]["ms"] * 1e3, "bound_us": x_mid["bf16"]["bound_ms"] * 1e3,
+        "shape": [n_mid, MID_LABELS], "dtype": "bf16",
+        "launches_crop_f32": wd["crop_launches_k1x"],
+        "max_abs_err_f32": errs[n_mid, MID_LABELS, torch.float32], "f32": x_mid["f32"],
+        "max_abs_err_by_L": {f"L{L}_{str(dt)[6:]}": max(errs[n, L, dt], errs[n - 7, L, dt])
+                             for L in XWIDE_CHECK_L + (K.XWIDE_MAX_L,)
+                             for dt in (torch.float32, torch.bfloat16)},
+        "l_device_share": wd["k1x_share"], f"n{n_full}_L256": x_256,
+        "design": "a persistent warp-specialised block a SM: producer warps write E and q (f32) "
+                  "of a tile of rows into one of two shared-memory buffers, the next rows loaded "
+                  "into registers meanwhile; consumer warps stream Mu's stage images by bulk copy "
+                  "(TMA) through a ring; bf16: wgmma m64n160k16 with q split into three bf16 "
+                  "terms in registers (setmaxnreg); f32: the plain version's arithmetic "
+                  "(warp-softmax order, in-order FFMA sum)",
+        # K1w_ffma, the kernel that served L > 256 before, on the same inputs
+        # (launched directly; the route above XWIDE_MAX_L only)
+        "yardstick_ffma": {
+            "name": "fused_energy_update_wide_ffma", "route": "cuda",
+            "source": "depth_estimation_torch/csrc/meanfield_wide_ffma.cu",
+            "launches_l": wd["launches"]["K1w_ffma"], **x_mid_ffma["bf16"],
+            "f32": x_mid_ffma["f32"],
+            "max_abs_err_by_L": {f"L{L}_{str(dt)[6:]}": e for (_, L, dt), e in errs_ffma.items()},
             "design": "a block per tile of rows, values read one by one, q in shared memory, "
                       "Mu staged through shared memory in 64-row blocks, 4x4 FFMA tiles a thread"},
     }
     log(f"chip_smoke: the whole script took {time.perf_counter() - t_start:.1f} s")
     log(card_line())
-    log(json.dumps({"kernels": [k1, k1w]}))
+    log(json.dumps({"kernels": [k1, k1w, k1x]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
     return 0

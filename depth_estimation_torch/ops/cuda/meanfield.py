@@ -7,8 +7,7 @@ S = W·C and the compatibility-transformed beliefs C = Q·Mu:
 
     E  = E0 + (S − C),   Q' = softmax(−E),   C' = Q'·Mu
 
-Three hand-written kernels serve every label count L (`kernel_for`), each
-bound by the bytes it moves:
+Four hand-written kernels serve every label count L (`kernel_for`):
 
 - K1 (`csrc/meanfield.cu`) for L in `SUPPORTED_L`: each warp takes one
   tile of consecutive rows, loaded by coalesced 16-byte words, with Mu in
@@ -24,16 +23,29 @@ bound by the bytes it moves:
   5e-3 px agreement with the unfused loop tolerates no other rounding.
   `wide_geometry` computes its padded width, grid and shared memory
   (`wide_config`: its instantiations).
+- K1x (`csrc/meanfield_xwide.cu`, `fused_energy_update_xwide`) for L from
+  `WIDE_MAX_L` + 1 to `XWIDE_MAX_L`, where Mu no longer fits in shared
+  memory: one persistent block a SM, warp-specialised. Producer warps
+  write E and the softmax's q (f32) for a tile of rows into one of two q
+  buffers in shared memory (the next rows' E0, S, C loaded into registers
+  meanwhile), while consumer warps compute the other buffer's Q'·Mu with
+  Mu's tiles streamed from L2 by bulk copies (the TMA engine) through a
+  ring of shared-memory stages: in bf16 by `wgmma` on the tensor cores
+  (q split into three bf16 terms, so that C' keeps its f32 accuracy), in
+  f32 by FFMA in the plain version's order, as K1w. `xwide_geometry`
+  computes its rows a tile, pass width, grid and shared memory.
 - K1w_ffma (`csrc/meanfield_wide_ffma.cu`, `fused_energy_update_wide_ffma`)
-  for L above `WIDE_MAX_L`: a block per tile of rows, q in shared memory
-  and Mu staged through it in blocks, the product on the FFMA pipes;
-  `wide_ffma_geometry` computes its tiles and shared memory.
+  for L above `XWIDE_MAX_L`, the route of last resort: a block per tile of
+  rows, q in shared memory and Mu staged through it in blocks, the product
+  on the FFMA pipes; `wide_ffma_geometry` computes its tiles and shared
+  memory.
 
 The geometries are computed here, where the CPU tests reach them, and
 re-checked by the C side. A CUDA tensor goes to a kernel or raises; a CPU
 tensor goes to `fused_energy_update_reference`. Each wrapper counts its own
 kernel's launches (`fused_energy_update.launches` for K1,
 `fused_energy_update_wide.launches` for K1w,
+`fused_energy_update_xwide.launches` for K1x,
 `fused_energy_update_wide_ffma.launches` for K1w_ffma).
 """
 from __future__ import annotations
@@ -43,10 +55,12 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["fused_energy_update", "fused_energy_update_wide", "fused_energy_update_wide_ffma",
-           "fused_energy_update_reference", "kernel_for", "launch_geometry", "wide_geometry",
-           "wide_ffma_geometry", "wide_config", "Geometry", "WideGeometry", "WideFfmaGeometry",
-           "SUPPORTED_L", "WIDE_MAX_L"]
+__all__ = ["fused_energy_update", "fused_energy_update_wide", "fused_energy_update_xwide",
+           "fused_energy_update_wide_ffma", "fused_energy_update_reference", "kernel_for",
+           "launch_geometry", "wide_geometry", "xwide_geometry", "wide_ffma_geometry",
+           "wide_config", "xwide_smem_bytes", "xwide_stage_labels", "xwide_pass_cols",
+           "Geometry", "WideGeometry", "XwideGeometry", "WideFfmaGeometry", "SUPPORTED_L",
+           "WIDE_MAX_L", "XWIDE_MAX_L"]
 
 SUPPORTED_L = (8, 16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,6 +72,14 @@ TILE_WORDS = 128  # 16-byte words of each array in a warp tile: 4 a lane
 # K1w's geometry (must agree with csrc/meanfield_wide.cu)
 WIDE_MAX_L = 256  # the largest L K1w serves; above it K1w_ffma
 WIDE_Q_STRIDE = 12  # f32: floats a label's 8 rows take in a warp's q tile
+
+# K1x's geometry (must agree with csrc/meanfield_xwide.cu)
+XWIDE_MAX_L = 1024  # the largest L K1x serves (32 values a lane); above it K1w_ffma
+XWIDE_PAD = 64  # L is padded to a multiple of this
+XWIDE_ROWS = (64, 32, 16)  # rows a tile, the largest that fits first
+XWIDE_THREADS = 384  # a block: producer and consumer warps, 8 + 4 in bf16, 4 + 8 in f32
+XWIDE_STAGES = {2: 4, 4: 3}  # stages of the Mu ring, by element size
+XWIDE_BARRIER_BYTES = 64  # the ring's mbarriers
 
 # K1w_ffma's geometry (must agree with csrc/meanfield_wide_ffma.cu)
 WIDE_FFMA_THREADS = 256  # a block: __launch_bounds__(256, 2)
@@ -96,13 +118,15 @@ def launch_geometry(n: int, L: int, elt: int) -> Geometry:
 
 def kernel_for(L: int) -> str:
     """Which kernel serves L labels on the card: 'K1' for L in
-    SUPPORTED_L, 'K1w' for every other L up to WIDE_MAX_L, 'K1w_ffma'
-    above it."""
+    SUPPORTED_L, 'K1w' for every other L up to WIDE_MAX_L, 'K1x' from
+    there up to XWIDE_MAX_L, 'K1w_ffma' above it."""
     if L < 1:
         raise ValueError(f"L={L}: the update needs at least one label")
     if L in SUPPORTED_L:
         return "K1"
-    return "K1w" if L <= WIDE_MAX_L else "K1w_ffma"
+    if L <= WIDE_MAX_L:
+        return "K1w"
+    return "K1x" if L <= XWIDE_MAX_L else "K1w_ffma"
 
 
 def wide_config(elt: int, lp: int) -> dict:
@@ -152,7 +176,7 @@ def wide_geometry(n: int, L: int, elt: int, sms: int) -> WideGeometry:
     """K1w's geometry for (n, L) rows of `elt`-byte values on a card of
     `sms` SMs: LP the power of two ≥ max(L, 32), as many persistent blocks
     as the SMs hold (`min_blocks` each) or the tiles need. Raises above
-    WIDE_MAX_L, where Mu's planes leave no room (K1w_ffma's L)."""
+    WIDE_MAX_L, where Mu's planes leave no room (K1x's L)."""
     if n < 1:
         raise ValueError(f"n={n}: the kernel needs at least one row")
     if not 1 <= L <= WIDE_MAX_L:
@@ -165,6 +189,65 @@ def wide_geometry(n: int, L: int, elt: int, sms: int) -> WideGeometry:
     grid_x = min(sms * cfg["min_blocks"], -(-num_tiles // cfg["warps"]))
     return WideGeometry(lp, cfg["rows"], cfg["nb"], cfg["warps"], cfg["min_blocks"], num_tiles,
                         grid_x, lp // cfg["nb"], cfg["smem_bytes"])
+
+
+def xwide_stage_labels(elt: int, rows: int) -> int:
+    """Labels (rows of Mu) a stage of K1x's Mu ring holds: 32 in bf16; in
+    f32 32 where a tile is 64 rows, else 16."""
+    return 32 if elt == 2 or rows == 64 else 16
+
+
+def xwide_pass_cols(elt: int, rows: int) -> int:
+    """Output columns K1x computes a pass (a stage's columns of Mu): 160 in
+    bf16 where a tile is 64 rows (LP = 320 in two passes), else 64."""
+    return 160 if elt == 2 and rows == 64 else 64
+
+
+def xwide_smem_bytes(elt: int, rows: int, lp: int) -> int:
+    """K1x's dynamic shared memory: two q buffers in f32 (bf16 state:
+    `rows` rows of lp + 8 values; f32 state: lp labels of rows + 4 values),
+    the Mu ring (XWIDE_STAGES stages of `xwide_stage_labels` rows of
+    `xwide_pass_cols` columns) and the ring's mbarriers."""
+    q = rows * (lp + 8) * 4 if elt == 2 else lp * (rows + 4) * 4
+    stage = xwide_stage_labels(elt, rows) * xwide_pass_cols(elt, rows) * elt
+    return 2 * q + XWIDE_STAGES[elt] * stage + XWIDE_BARRIER_BYTES
+
+
+@dataclass(frozen=True)
+class XwideGeometry:
+    """A launch of K1x: `grid` persistent blocks of `threads` threads
+    (producer warps, then consumer warps) walk the `num_tiles` tiles of
+    `rows` rows; L is padded to `lp`; a pass computes `pass_cols` output
+    columns, so Mu's stage images (the wrapper's scratch) hold lp rows of
+    `mu_cols` columns; `smem_bytes` of dynamic shared memory
+    (`xwide_smem_bytes`)."""
+
+    lp: int
+    rows: int
+    pass_cols: int
+    mu_cols: int
+    threads: int
+    num_tiles: int
+    grid: int
+    smem_bytes: int
+
+
+def xwide_geometry(n: int, L: int, elt: int, sms: int) -> XwideGeometry:
+    """K1x's geometry for (n, L) rows of `elt`-byte values on a card of
+    `sms` SMs: LP = L padded to a multiple of XWIDE_PAD, the most rows a
+    tile (XWIDE_ROWS) whose two q buffers and Mu ring fit the card's shared
+    memory, one block a SM or a tile. Raises above XWIDE_MAX_L (K1w_ffma's
+    labels)."""
+    if n < 1:
+        raise ValueError(f"n={n}: the kernel needs at least one row")
+    if not 1 <= L <= XWIDE_MAX_L:
+        raise ValueError(f"L={L}: K1x serves 1 to {XWIDE_MAX_L} labels")
+    lp = -(-L // XWIDE_PAD) * XWIDE_PAD
+    rows = next(r for r in XWIDE_ROWS if xwide_smem_bytes(elt, r, lp) <= MAX_SMEM)
+    num_tiles = -(-n // rows)
+    pc = xwide_pass_cols(elt, rows)
+    return XwideGeometry(lp, rows, pc, -(-lp // pc) * pc, XWIDE_THREADS, num_tiles,
+                         min(sms, num_tiles), xwide_smem_bytes(elt, rows, lp))
 
 
 @dataclass(frozen=True)
@@ -215,12 +298,12 @@ def fused_energy_update_reference(E0, S, C, Mu):
     return E.to(dt), (Q @ Mu.float()).to(dt)
 
 
-def _lib(name: str, symbol: str, ints: int):
+def _lib(name: str, symbol: str, ints: int, pointers: int = 6):
     from ...utils.build import load_library
 
     fn = getattr(load_library(name), symbol)
     # without argtypes ctypes would pass each pointer as a 32-bit int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * ints
+    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_longlong] + [ctypes.c_int] * ints
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -246,38 +329,55 @@ def _checked(E0, S, C, Mu):
     return n, L
 
 
-def fused_energy_update(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
-                        Mu: torch.Tensor):
-    """(E, C') from (n, L) E0, S, C and (L, L) Mu, all of one dtype
-    (float32 or bfloat16) and on one device. On the card, L in SUPPORTED_L
-    launches K1, every other L up to WIDE_MAX_L K1w and a larger L
-    K1w_ffma (`kernel_for`)."""
+def _launch(wrapper, library: str, E0, S, C, Mu, geometry):
+    """What the four wrappers share: the plain version for a CPU tensor,
+    uncounted; else the arrays checked, E and C' allocated and `library`'s
+    `<wrapper>_launch` called with the launch's ints that `geometry(n, L,
+    elt)` gives (and, where it gives a scratch size, a scratch array after
+    Mu), raising on its error code and counting the launch on
+    `wrapper.launches`."""
     if E0.device.type == "cpu":
         return fused_energy_update_reference(E0, S, C, Mu)
     n, L = _checked(E0, S, C, Mu)
-    kernel = kernel_for(L)
-    if kernel == "K1w":
-        return fused_energy_update_wide(E0, S, C, Mu)
-    if kernel == "K1w_ffma":
-        return fused_energy_update_wide_ffma(E0, S, C, Mu)
-    for name, x in (("E0", E0), ("S", S), ("C", C), ("Mu", Mu)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
     E = torch.empty_like(E0)
     Cn = torch.empty_like(E0)
     if n == 0:
         return E, Cn
     with torch.cuda.device(E0.device):
-        g = launch_geometry(n, L, E0.element_size())
+        ints, scratch = geometry(n, L, E0.element_size())
+        extra = [torch.empty(scratch, dtype=E0.dtype, device=E0.device)] if scratch else []
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib("meanfield", "fused_energy_update_launch", 6)(
-            E0.data_ptr(), S.data_ptr(), C.data_ptr(), Mu.data_ptr(), E.data_ptr(),
-            Cn.data_ptr(), n, L, _DTYPES[E0.dtype], g.tile_rows, g.num_tiles, g.grid,
-            g.smem_bytes, stream)
+        err = _lib(library, f"{wrapper.__name__}_launch", 2 + len(ints), 6 + len(extra))(
+            E0.data_ptr(), S.data_ptr(), C.data_ptr(), Mu.data_ptr(),
+            *[x.data_ptr() for x in extra], E.data_ptr(), Cn.data_ptr(), n, L,
+            _DTYPES[E0.dtype], *ints, stream)
     if err != 0:
-        raise RuntimeError(f"fused_energy_update launch failed: cudaError {err}")
-    fused_energy_update.launches += 1
+        raise RuntimeError(f"{wrapper.__name__} launch failed: cudaError {err}")
+    wrapper.launches += 1
     return E, Cn
+
+
+def fused_energy_update(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
+                        Mu: torch.Tensor):
+    """(E, C') from (n, L) E0, S, C and (L, L) Mu, all of one dtype
+    (float32 or bfloat16) and on one device. On the card, L in SUPPORTED_L
+    launches K1, every other L up to WIDE_MAX_L K1w, L up to XWIDE_MAX_L
+    K1x and a larger L K1w_ffma (`kernel_for`)."""
+    if E0.device.type == "cpu":
+        return fused_energy_update_reference(E0, S, C, Mu)
+    _, L = _checked(E0, S, C, Mu)
+    kernel = kernel_for(L)
+    if kernel != "K1":
+        return {"K1w": fused_energy_update_wide, "K1x": fused_energy_update_xwide,
+                "K1w_ffma": fused_energy_update_wide_ffma}[kernel](E0, S, C, Mu)
+    for name, x in (("E0", E0), ("S", S), ("C", C), ("Mu", Mu)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+    def geometry(n, L, elt):
+        g = launch_geometry(n, L, elt)
+        return (g.tile_rows, g.num_tiles, g.grid, g.smem_bytes), 0
+    return _launch(fused_energy_update, "meanfield", E0, S, C, Mu, geometry)
 
 
 def _sms(device: torch.device) -> int:
@@ -289,50 +389,37 @@ def fused_energy_update_wide(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
     """K1w's wrapper: (E, C') as `fused_energy_update` computes them, at any
     L from 1 to WIDE_MAX_L and any row alignment (rows of a multiple of 16
     bytes, 16-byte aligned, move as 16-byte words; others value by value)."""
-    if E0.device.type == "cpu":
-        return fused_energy_update_reference(E0, S, C, Mu)
-    n, L = _checked(E0, S, C, Mu)
-    E = torch.empty_like(E0)
-    Cn = torch.empty_like(E0)
-    if n == 0:
-        return E, Cn
-    with torch.cuda.device(E0.device):
-        g = wide_geometry(n, L, E0.element_size(), _sms(E0.device))
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib("meanfield_wide", "fused_energy_update_wide_launch", 6)(
-            E0.data_ptr(), S.data_ptr(), C.data_ptr(), Mu.data_ptr(), E.data_ptr(),
-            Cn.data_ptr(), n, L, _DTYPES[E0.dtype], g.lp, g.grid_x, g.grid_y, g.smem_bytes,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"fused_energy_update_wide launch failed: cudaError {err}")
-    fused_energy_update_wide.launches += 1
-    return E, Cn
+    def geometry(n, L, elt):
+        g = wide_geometry(n, L, elt, _sms(E0.device))
+        return (g.lp, g.grid_x, g.grid_y, g.smem_bytes), 0
+    return _launch(fused_energy_update_wide, "meanfield_wide", E0, S, C, Mu, geometry)
+
+
+def fused_energy_update_xwide(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
+                              Mu: torch.Tensor):
+    """K1x's wrapper: (E, C') as `fused_energy_update` computes them, at any
+    L from 1 to XWIDE_MAX_L (it serves WIDE_MAX_L + 1 and up) and any row
+    alignment (rows of a multiple of 16 bytes, 16-byte aligned, move as
+    16-byte words; others value by value). Its scratch holds Mu's stage
+    images."""
+    def geometry(n, L, elt):
+        g = xwide_geometry(n, L, elt, _sms(E0.device))
+        return (g.lp, g.rows, g.grid, g.smem_bytes), g.lp * g.mu_cols
+    return _launch(fused_energy_update_xwide, "meanfield_xwide", E0, S, C, Mu, geometry)
 
 
 def fused_energy_update_wide_ffma(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
                                   Mu: torch.Tensor):
     """K1w_ffma's wrapper: (E, C') as `fused_energy_update` computes them, at
     any L ≥ 1 (up to 54,012) and any row alignment."""
-    if E0.device.type == "cpu":
-        return fused_energy_update_reference(E0, S, C, Mu)
-    n, L = _checked(E0, S, C, Mu)
-    E = torch.empty_like(E0)
-    Cn = torch.empty_like(E0)
-    if n == 0:
-        return E, Cn
-    with torch.cuda.device(E0.device):
+    def geometry(n, L, elt):
         g = wide_ffma_geometry(n, L)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib("meanfield_wide_ffma", "fused_energy_update_wide_ffma_launch", 7)(
-            E0.data_ptr(), S.data_ptr(), C.data_ptr(), Mu.data_ptr(), E.data_ptr(),
-            Cn.data_ptr(), n, L, _DTYPES[E0.dtype], g.tile_rows, g.q_stride, g.col_chunk,
-            g.num_tiles, g.smem_bytes, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_energy_update_wide_ffma launch failed: cudaError {err}")
-    fused_energy_update_wide_ffma.launches += 1
-    return E, Cn
+        return (g.tile_rows, g.q_stride, g.col_chunk, g.num_tiles, g.smem_bytes), 0
+    return _launch(fused_energy_update_wide_ffma, "meanfield_wide_ffma", E0, S, C, Mu,
+                   geometry)
 
 
 fused_energy_update.launches = 0  # K1's launches, for run-time path checks
 fused_energy_update_wide.launches = 0  # K1w's launches
+fused_energy_update_xwide.launches = 0  # K1x's launches
 fused_energy_update_wide_ffma.launches = 0  # K1w_ffma's launches

@@ -1,5 +1,5 @@
-"""The PyTorch port's CUDA kernels (K1, K1w and K1w_ffma) against their
-plain versions, on a card.
+"""The PyTorch port's CUDA kernels (K1, K1w, K1x and K1w_ffma) against
+their plain versions, on a card.
 
 These tests import neither JAX nor the JAX package, so a GPU machine without
 JAX runs them, skipping the JAX-specific conftest:
@@ -30,7 +30,7 @@ def _check(arrays, dtype):
     its own counter, against the plain version on the same inputs."""
     arrays = [torch.from_numpy(a).to("cuda", dtype) for a in arrays]
     counters = {"K1": T.fused_energy_update, "K1w": T.fused_energy_update_wide,
-                "K1w_ffma": T.fused_energy_update_wide_ffma}
+                "K1x": T.fused_energy_update_xwide, "K1w_ffma": T.fused_energy_update_wide_ffma}
     before = {k: f.launches for k, f in counters.items()}
     E_k, C_k = T.fused_energy_update(*arrays)
     torch.cuda.synchronize()
@@ -101,7 +101,7 @@ def test_wide_kernel_matches_plain_version(n, L, dtype):
 @pytest.mark.parametrize("L", [15, 17, 31, 33, 63, 65, 127, 129, 255, 256, 257])
 def test_wide_kernel_at_the_mma_tile_edges(L, dtype):
     """L around the padded widths LP (32, 64, 128, 256), the MMA's 16
-    labels and K1w's limit (257 goes to K1w_ffma), at a ragged row count."""
+    labels and K1w's limit (257 goes to K1x), at a ragged row count."""
     _needs_card()
     _check(_inputs(8, 4099, L), dtype)
 
@@ -130,7 +130,7 @@ def test_wide_kernel_at_the_edges_of_its_geometry(case, L, dtype):
 @pytest.mark.parametrize("L", [1, 3, 12, 24, 100, 128, 256, 300])
 @pytest.mark.parametrize("n", [1, 7, 110585])
 def test_wide_ffma_kernel_matches_plain_version(n, L, dtype):
-    """K1w_ffma, which serves L above WIDE_MAX_L, launched directly at the
+    """K1w_ffma, which serves L above XWIDE_MAX_L, launched directly at the
     label counts it served alone before K1w took L up to 256."""
     _needs_card()
     arrays = [torch.from_numpy(a).to("cuda", dtype) for a in _inputs(6, n, L)]
@@ -170,3 +170,74 @@ def test_wide_kernel_takes_rows_off_16_byte_alignment(L, dtype):
         ulp = 2.0 ** (torch.floor(torch.log2(E_r.float().abs().clamp_min(1e-30))) - 7)
         assert bool(((E_k.float() - E_r.float()).abs() <= ulp).all())
         torch.testing.assert_close(C_k.float(), C_r.float(), rtol=0, atol=1e-2)
+
+
+def _check_direct(fn, arrays, dtype):
+    """One launch of `fn` (a kernel's own wrapper), counted once on its own
+    counter, against the plain version on the same inputs (which may lie
+    off 16-byte alignment)."""
+    before = fn.launches
+    E_k, C_k = fn(*arrays)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    E_r, C_r = T.fused_energy_update_reference(*[a.contiguous() for a in arrays])
+    if dtype == torch.float32:
+        torch.testing.assert_close(E_k, E_r, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(C_k, C_r, rtol=1e-5, atol=1e-5)
+    else:
+        ulp = 2.0 ** (torch.floor(torch.log2(E_r.float().abs().clamp_min(1e-30))) - 7)
+        assert bool(((E_k.float() - E_r.float()).abs() <= ulp).all())
+        torch.testing.assert_close(C_k.float(), C_r.float(), rtol=0, atol=1e-2)
+
+
+XWIDE_L = [257, 288, 300, 320, 384, 512, 1000, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", XWIDE_L)
+@pytest.mark.parametrize("n", [1, 63, 4099])
+def test_xwide_kernel_matches_plain_version(n, L, dtype):
+    """K1x, which serves L from 257 to XWIDE_MAX_L, through the dispatch at
+    ragged row counts (a lone partial tile, and some blocks taking one tile
+    more than others); in f32 it repeats the plain version's arithmetic bit
+    for bit. The witness for that is the plain version on 4099 rows, of
+    which the kernel's n are the first: cuBLAS's kernel for Q'·Mu at so many
+    rows sums in the order K1x repeats, where at 1 and 63 rows it takes
+    others that sum in another order."""
+    _needs_card()
+    assert T.XWIDE_MAX_L == 1024 and T.kernel_for(L) == "K1x"
+    _check(_inputs(10, n, L), dtype)
+    if dtype == torch.float32:
+        padded = [torch.from_numpy(a).to("cuda") for a in _inputs(10, 4099, L)]
+        rows = [a[:n] for a in padded[:3]] + padded[3:]
+        E_k, C_k = T.fused_energy_update_xwide(*rows)
+        E_r, C_r = T.fused_energy_update_reference(*padded)
+        assert torch.equal(E_k, E_r[:n]) and torch.equal(C_k, C_r[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [257, 300, 320, 1000])
+def test_xwide_kernel_takes_rows_off_16_byte_alignment(L, dtype):
+    """Contiguous arrays that start one element into their storage: K1x
+    stores C' value by value and tiles Mu from any alignment."""
+    _needs_card()
+    arrays = [torch.from_numpy(a).to("cuda", dtype) for a in _inputs(11, 1001, L)]
+    shifted = []
+    for a in arrays:
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device="cuda")
+        shifted.append(buf[1:].view(a.shape).copy_(a))
+    assert shifted[0].data_ptr() % 16 == shifted[0].element_size()
+    _check_direct(T.fused_energy_update_xwide, shifted, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 64, 200, 256])
+def test_xwide_kernel_below_its_range(L, dtype):
+    """K1x launched directly at label counts K1 and K1w serve (it takes any
+    L up to XWIDE_MAX_L; the dispatch sends it only those above 256)."""
+    _needs_card()
+    arrays = [torch.from_numpy(a).to("cuda", dtype) for a in _inputs(12, 777, L)]
+    _check_direct(T.fused_energy_update_xwide, arrays, dtype)

@@ -1,7 +1,8 @@
 """The fused mean-field update at every label count: the plain version
 against the JAX package's Pallas kernel (interpret mode on the CPU, as
 tests/test_torch_fused.py runs it) at label counts K1 does not serve, the
-choice of kernel, the launch geometries of K1w and K1w_ffma, K1w's
+choice of kernel (K1x's own tests are in tests/test_torch_fused_xwide.py),
+the launch geometries of K1w and K1w_ffma, K1w's
 arithmetic emulated in plain torch (bf16: q split into hi + lo bf16 terms;
 f32: the plain version's order of sums) against the plain version, the
 wrappers' refusals, and the fused pipeline at L = 24
@@ -42,12 +43,13 @@ def test_plain_version_matches_pallas_interpret_at_any_L(L):
 
 @pytest.mark.parametrize("L,want", [(1, "K1w"), (3, "K1w"), (8, "K1"), (12, "K1w"), (16, "K1"),
                                     (24, "K1w"), (32, "K1"), (64, "K1"), (128, "K1w"),
-                                    (255, "K1w"), (256, "K1w"), (257, "K1w_ffma"),
-                                    (300, "K1w_ffma"), (54012, "K1w_ffma")])
+                                    (255, "K1w"), (256, "K1w"), (257, "K1x"),
+                                    (300, "K1x"), (54012, "K1w_ffma")])
 def test_kernel_for_label_count(L, want):
     assert T.kernel_for(L) == want
     assert (want == "K1") == (L in T.SUPPORTED_L)
-    assert (want == "K1w_ffma") == (L > T.WIDE_MAX_L == 256)
+    assert (want == "K1x") == (T.WIDE_MAX_L == 256 < L <= T.XWIDE_MAX_L)
+    assert (want == "K1w_ffma") == (L > T.XWIDE_MAX_L)
 
 
 def test_kernel_for_refuses_no_labels():
