@@ -6,8 +6,8 @@
 Drives the port's flagship stereo inference, `crf_stereo_infer` on a
 288×384 pair with 16 labels, a 5-D bilateral guide and 5 mean-field
 iterations, through both lattice plan paths, then its training path, its
-serving, multi-device, operator and detection paths, fullres128 and a
-wide-disparity frame:
+serving, multi-device, operator and detection paths, fullres128, a
+wide-disparity frame and the route above 1024 labels:
 
   A. the bench configuration: calibrated capacity, 32-px tiles with bf16
      incidence blocks, bf16 mean-field state and the fused update, on a
@@ -89,7 +89,20 @@ wide-disparity frame:
      5e-3 px; its 96x384 crop (wider than L) in float32 against the port's
      CPU run (5e-3 px); the calibration, the warm pipeline with K1x and
      with K1w_ffma launched in its place (median of 3 each), one profile
-     and the peak device memory are printed.
+     and the peak device memory are printed;
+  M. K1xx's route inside the pipeline, a check of the route and not a
+     user's configuration (no configuration of the repo has more than 1024
+     labels): a 160x1280 synthetic pair (6 layers, disparities to 1098) at
+     1100 labels, calibrated, bf16 and fused as L: 5 K1xx launches and no
+     other kernel's, a finite disparity; under deterministic algorithms the
+     same run with K1xx's plain version in its place within 0.1 px (mean)
+     and, in float32, the unfused loop within 5e-3 px; printed beside that
+     bf16 gate, what rounding alone does to it: the share of C' values
+     that K1xx rounds otherwise than its plain version in the run, the
+     plain version with that share of its C' values moved by one bf16 ulp
+     (two seeds), and with C' summed in float64 and rounded once; the warm
+     pipeline with K1xx and with K1w_ffma launched in its place (median of
+     3 each), K1xx's share of one profile and the peak device memory.
 
 It builds the CUDA kernels from `depth_estimation_torch/csrc` and the C++
 CPU lattice (one compiler per source, all at once), prints what `ptxas`
@@ -98,13 +111,17 @@ more registers than the kernel's own __launch_bounds__ allow, or any spill,
 fails), holds each kernel against its plain PyTorch version on the card
 (K1 at 8 to 64 labels; K1w, the tensor-core kernel, at 3, 12, 24, 100, 128
 and 256 labels, at the edges of its padded widths and at fullres128's
-shape; K1x at 257, 288, 300, 320, 384, 512, 1000 and 1024 labels; K1w_ffma,
-which serves L above 1024, at 1025 and, launched directly, at 257 and 300)
-and times them (K1w_ffma also at fullres128's rows with 24, 128 and 256
-labels, as the yardstick of the FFMA design K1w replaced there, and at
-phase L's shape beside K1x), counts the kernels' launches in every phase
-(A, B, E and F launch K1 5 times a frame, K launches K1w 5 times, L K1x 5
-times, the others launch none of them), and checks each
+shape; K1x at 257, 288, 300, 320, 384, 512, 1000 and 1024 labels; K1xx,
+which serves every L above 1024, at 1025, 1088, 1100, 1536, 2048 and 4099
+and at phase M's shape; K1w_ffma, the earlier FFMA design and on no route now, launched directly at
+257, 300 and 1025) and times them (K1 also at phase L's rows with 64
+labels; K1w_ffma at fullres128's rows with 24, 128 and 256 labels, as the
+yardstick of the FFMA design K1w replaced there, at phase L's shape beside
+K1x and at (393216, 1536) beside K1xx; K1xx also at phase L's shape),
+counts the kernels' launches in
+every phase (A, B, E and F launch K1 5 times a frame, K launches K1w 5
+times, L K1x 5 times, M K1xx 5 times, the others launch none of them),
+and checks each
 pipeline's disparity against the same pipeline without the kernel on the
 card and against the port's own CPU run (the path the CPU tests hold
 against the JAX package). Any failed check raises. The last lines are the
@@ -185,13 +202,19 @@ FULL_INCIDENCE_BYTES = 4 << 30  # the bench's budget for the f32-denominated tab
 CROP_H, CROP_W = 192, 256
 # the label counts at which K1w is held against its plain version, and the
 # edges of its padded widths (32, 64, 128, 256) and of its limit; K1x's
-# (XWIDE_MAX_L, 1024, is checked too); K1w_ffma's, launched directly at L
-# that K1x serves, and through the dispatch above XWIDE_MAX_L
+# (XWIDE_MAX_L, 1024, is checked too); K1xx's, on the flagship's rows and
+# 7 fewer, and at XXWIDE_ODD_L labels on as many rows; K1w_ffma's, launched
+# directly (no L reaches it through the dispatch)
 WIDE_CHECK_L = (3, 12, 24, 100, 128, 256)
 WIDE_EDGE_L = (1, 17, 33, 65, 127, 129, 255)
 XWIDE_CHECK_L = (257, 288, 300, 320, 384, 512, 1000)
-FFMA_CHECK_L = (257, 300)
-FFMA_ROUTED_L = 1025
+XXWIDE_CHECK_L = (1025, 1088, 1100, 1536, 2048)
+XXWIDE_ODD_L = 4099
+FFMA_CHECK_L = (257, 300, 1025)
+# K1xx timed at a 512x768 frame's rows at 1536 labels, beside K1w_ffma
+# launched directly (about 450 ms a launch there: it and the plain version
+# are timed over XX_SLOW_REPS launches)
+XX_N, XX_LABELS, XX_SLOW_REPS = 512 * 768, 1536, 20
 # L: wide disparities, a half-size Middlebury 2014 frame (tools/bench_suite.py's
 # middlebury64 size, 994x1482) at the 320 labels that Jadeplant's ndisp=640
 # becomes at half size; the 6-layer synthetic pair the bench takes without a
@@ -199,6 +222,10 @@ FFMA_ROUTED_L = 1025
 # than L) in float32 against the port's CPU run
 MID_H, MID_W, MID_LABELS = 994, 1482, 320
 MID_CROP_H, MID_CROP_W = 96, 384
+# M: K1xx's route inside the pipeline (no configuration of the repo has more
+# than 1024 labels, so this is a check of the route): a 160x1280 synthetic
+# pair at 1100 labels, calibrated as L
+ROUTE_H, ROUTE_W, ROUTE_LABELS = 160, 1280, 1100
 
 
 def log(msg: str) -> None:
@@ -239,12 +266,13 @@ def counters() -> dict:
     from depth_estimation_torch.ops.cuda import meanfield as K
 
     return {"K1": K.fused_energy_update, "K1w": K.fused_energy_update_wide,
-            "K1x": K.fused_energy_update_xwide, "K1w_ffma": K.fused_energy_update_wide_ffma}
+            "K1x": K.fused_energy_update_xwide, "K1xx": K.fused_energy_update_xxwide,
+            "K1w_ffma": K.fused_energy_update_wide_ffma}
 
 
 def zero_launches() -> None:
-    """Set the launch counts of the fused-update kernels (K1, K1w, K1x and
-    K1w_ffma) to 0."""
+    """Set the launch counts of the fused-update kernels (K1, K1w, K1x, K1xx
+    and K1w_ffma) to 0."""
     for fn in counters().values():
         fn.launches = 0
 
@@ -265,9 +293,10 @@ def only_launched(name: str, want: int) -> int:
 
 def k1_launches() -> int:
     """K1's launches since `zero_launches`; a path at the repo's label
-    counts of 8 to 64 must have launched K1w, K1x and K1w_ffma no time."""
+    counts of 8 to 64 must have launched K1w, K1x, K1xx and K1w_ffma no
+    time."""
     wrappers = counters()
-    for name in ("K1w", "K1x", "K1w_ffma"):
+    for name in ("K1w", "K1x", "K1xx", "K1w_ffma"):
         check(wrappers[name].launches == 0, f"{name} launched {wrappers[name].launches} times")
     return wrappers["K1"].launches
 
@@ -312,10 +341,12 @@ def ptxas_report(K) -> list[dict]:
     the fused update: K1 (<L, float or bfloat16>, __launch_bounds__(128,
     4)), K1w (<float or bfloat16, LP>, its bounds from `wide_config`), K1x
     (<float or bfloat16, rows a tile, values a lane>, (its threads, 1); and
-    its Mu-tiling pass, no bounds) and K1w_ffma (<float or bfloat16>, (256,
-    2)), each held to its own register cap, with the dynamic shared memory
-    of K1's launch at the flagship row count, of the K1w kernels' at
-    fullres128's row count and of K1x's at phase L's."""
+    its Mu-tiling pass, no bounds), K1xx (<float or bfloat16>, (its
+    threads, 1); and its Mu-tiling pass) and K1w_ffma (<float or bfloat16>,
+    (256, 2)), each held to its own register cap, with the dynamic shared
+    memory of K1's launch at the flagship row count, of the K1w kernels' at
+    fullres128's row count, of K1x's at phase L's and of K1xx's at its
+    timed shape."""
     dtname = {"f": "f32", "13__nv_bfloat16": "bf16"}
     elts = {"f": 4, "13__nv_bfloat16": 2}
     n_full = FULL_H * FULL_W
@@ -327,6 +358,9 @@ def ptxas_report(K) -> list[dict]:
                  r"fused_energy_update_xwide_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
     tile = _ptxas("meanfield_xwide",
                   r"fused_energy_update_xwide_tile_mu_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
+    k1xx = _ptxas("meanfield_xxwide", r"fused_energy_update_xxwide_kernelI(f|13__nv_bfloat16)E")
+    tile_xx = _ptxas("meanfield_xxwide",
+                     r"fused_energy_update_xxwide_tile_mu_kernelI(f|13__nv_bfloat16)E")
     wanted = [("K1", f"L={L}", dtname[m], k1.get((str(L), m)),
                K.launch_geometry(H * W, L, elts[m]).smem_bytes, register_cap(128, 4))
               for L in K.SUPPORTED_L for m in dtname]
@@ -347,6 +381,11 @@ def ptxas_report(K) -> list[dict]:
         for kt, nc in ((32, 160), (32, 64)) if m != "f" else ((32, 64), (16, 64)):
             wanted.append(("K1x tile_mu", f"kKt={kt} kNc={nc}", dtname[m],
                            tile.get((m, str(kt), str(nc))), 0, 255))
+    for m in dtname:  # one instantiation a dtype, and its Mu-tiling pass
+        g = K.xxwide_geometry(XX_N, XX_LABELS, elts[m], sms)
+        wanted.append(("K1xx", "any L", dtname[m], k1xx.get((m,)), g.smem_bytes,
+                       register_cap(g.threads, 1)))
+        wanted.append(("K1xx tile_mu", "any L", dtname[m], tile_xx.get((m,)), 0, 255))
     wanted += [("K1w_ffma", "any L", dtname[m], ffma.get((m,)),
                 K.wide_ffma_geometry(n_full, FULL_LABELS).smem_bytes, register_cap(256, 2))
                for m in dtname]
@@ -411,13 +450,18 @@ def check_fused_update(K, n: int, L: int, dtype, on_device: bool = False,
 
 
 def time_fused_update(K, n: int, L: int, dtype, on_device: bool = False,
-                      kernel: str | None = None) -> dict:
+                      kernel: str | None = None, reps: int = 100, plain_reps: int = 50) -> dict:
     """The kernel that `kernel_for(L)` names (or `kernel`, launched through
-    its own wrapper) and the plain version, L2 flushed, against the least
-    time the card could take: the larger of the bytes over the memory rate
-    and the operations over their peak rates (q·Mu, 2L² a row, on the
-    tensor cores at the bf16 rate; E, max, exp, sum and divide, 6L a row,
-    on the f32 pipes)."""
+    its own wrapper; median of `reps` launches) and the plain version
+    (median of `plain_reps`), L2 flushed, against the least time the card
+    could take: the larger of the bytes over the memory rate and the
+    operations over their peak rates (q·Mu, 2L² a row, on the tensor cores
+    at the bf16 rate; E, max, exp, sum and divide, 6L a row, on the f32
+    pipes). Beside it two floors of the product alone: with q in the three
+    bf16 terms that keep its f32 accuracy (3 × 2L² a row at the bf16 rate,
+    which the bf16 kernels run on the tensor cores) and on the f32 FFMA
+    pipes (2L² a row, where f32 must sum it in the plain version's
+    order)."""
     kernel = kernel or K.kernel_for(L)
     fn = counters()[kernel]
     args = kernel_inputs(n, L, dtype, seed=1, on_device=on_device)
@@ -425,8 +469,8 @@ def time_fused_update(K, n: int, L: int, dtype, on_device: bool = False,
     for _ in range(3):
         fn(*args)
         K.fused_energy_update_reference(*args)
-    ms = median_ms(lambda: fn(*args), 100, flush)
-    plain_ms = median_ms(lambda: K.fused_energy_update_reference(*args), 50, flush)
+    ms = median_ms(lambda: fn(*args), reps, flush)
+    plain_ms = median_ms(lambda: K.fused_energy_update_reference(*args), plain_reps, flush)
     elt = args[0].element_size()
     nbytes = (5 * n * L + L * L) * elt  # E0, S, C, Mu read once; E, C' written once
     flops = n * (2 * L * L + 6 * L)
@@ -434,12 +478,18 @@ def time_fused_update(K, n: int, L: int, dtype, on_device: bool = False,
     ops_ms = (n * 2 * L * L / PEAK_BF16_TC_FLOP_S + n * 6 * L / PEAK_F32_FLOP_S) * 1e3
     out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           # q·Mu with q in three bf16 terms on the tensor cores: the floor
+           # of a bf16 kernel that keeps q's f32 accuracy
+           "three_term_floor_ms": n * 3 * 2 * L * L / PEAK_BF16_TC_FLOP_S * 1e3,
            # q·Mu on the f32 FFMA pipes, where f32 must sum it (the plain
            # version's order): the floor of an f32 kernel that keeps it
-           "ffma_floor_ms": n * 2 * L * L / PEAK_F32_FLOP_S * 1e3}
+           "ffma_floor_ms": n * 2 * L * L / PEAK_F32_FLOP_S * 1e3,
+           "reps": reps, "plain_reps": plain_reps}
     log(f"  time {kernel} n={n} L={L} {str(dtype)[6:]}: kernel {ms * 1e3:.2f} us, plain "
         f"{plain_ms * 1e3:.2f} us, bound {out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}: "
-        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); three-term floor "
+        f"{out['three_term_floor_ms'] * 1e3:.2f} us, FFMA floor "
+        f"{out['ffma_floor_ms'] * 1e3:.2f} us (medians of {reps} and {plain_reps} launches)")
     return out
 
 
@@ -1729,6 +1779,176 @@ def run_wide_disparity() -> dict:
             "crop_launches_k1x": crop_k1x}
 
 
+def counting_flips(update, tally: dict, key: str):
+    """`update` (a fused update), also counting into tally[key] the share
+    of C' values it rounds otherwise than the plain version on the same
+    inputs (over every call)."""
+    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update_reference
+
+    seen = [0, 0]
+
+    def counted(E0, S, C, Mu):
+        E, Cn = update(E0, S, C, Mu)
+        seen[0] += int((Cn != fused_energy_update_reference(E0, S, C, Mu)[1]).sum())
+        seen[1] += Cn.numel()
+        tally[key] = seen[0] / seen[1]
+        return E, Cn
+    return counted
+
+
+def one_ulp_flips(share: float, seed: int):
+    """The plain version with a random `share` of its nonzero bf16 C'
+    values moved by one ulp, up or down at random (a seeded generator on
+    the card): rounding noise of that share, with no bias."""
+    from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update_reference
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def flipped(E0, S, C, Mu):
+        E, Cn = fused_energy_update_reference(E0, S, C, Mu)
+        pick = (torch.rand(Cn.shape, generator=g, device=Cn.device) < share) & (Cn != 0)
+        step = torch.where(torch.rand(Cn.shape, generator=g, device=Cn.device) < 0.5, 1, -1)
+        bits = Cn.view(torch.int16) + (pick * step).to(torch.int16)  # one ulp of |C'|
+        return E, bits.view(torch.bfloat16)
+    return flipped
+
+
+def rounding_witness(tag: str, run, compare, cfg, fused_bf16, plain_bf16, flips: dict) -> dict:
+    """What rounding alone does to M's bf16 gate (printed, not gated): the
+    plain version with the share of C' values K1xx rounds otherwise (in
+    `flips`) moved by one ulp at random, two seeds, against the plain
+    version; and the plain version with Q'·Mu in float64, rounded once
+    (`plain_f64`), against the plain version and against K1xx. If K1xx's
+    gap to the plain version is rounding, it is of the size of these."""
+    share = flips["K1xx"]
+    f64 = run(cfg, counting_flips(plain_f64, flips, "plain_f64"))
+    log(f"{tag}: bf16 C' values rounded otherwise than the plain version's, over the 5 "
+        f"iterations: K1xx {flips['K1xx']:.4%}, the float64-summed plain version "
+        f"{flips['plain_f64']:.4%}")
+    out = {f"one_ulp_seed{seed}": compare(
+        f"the plain version with {share:.4%} of C' moved one ulp (seed {seed}) - the plain "
+        "version, bf16, deterministic (printed)", run(cfg, one_ulp_flips(share, seed)),
+        plain_bf16, None) for seed in (0, 1)}
+    out["f64_plain"] = compare("the float64-summed plain version - the plain version, bf16, "
+                               "deterministic (printed)", f64, plain_bf16, None)
+    out["k1xx_f64"] = compare("K1xx's run - the float64-summed plain version's, bf16, "
+                              "deterministic (printed)", fused_bf16, f64, None)
+    return out
+
+
+def run_route_check() -> dict:
+    """M: K1xx's route inside the pipeline, a check of the route and not a
+    user's configuration (no configuration of the repo has more than 1024
+    labels): a 160x1280 pair at 1100 labels with bf16 state and the fused
+    update, calibrated as L: 5 launches of K1xx and none of the other
+    kernels, a finite disparity, within BF16_MEAN_TOL of the same run with
+    K1xx's plain version in its place, the fused loop within DISP_ATOL of
+    the unfused one in float32; beside the bf16 gate, what rounding alone
+    does to it (`rounding_witness`); the warm pipeline with K1xx and with
+    K1w_ffma in its place, K1xx's share of one profile, peak memory."""
+    from depth_estimation_torch.data.synthetic import make_stereo_pair
+    from depth_estimation_torch.models import pipeline as P
+    from depth_estimation_torch.models.pipeline import crf_stereo_infer
+    from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
+                                                           fused_energy_update_reference,
+                                                           fused_energy_update_wide_ffma)
+
+    tag = (f"M (K1xx's route, {ROUTE_H}x{ROUTE_W}, L={ROUTE_LABELS}, bf16, fused; a check of "
+           "the route, not a user's configuration)")
+    left, right, _ = make_stereo_pair(np.random.RandomState(0), ROUTE_H, ROUTE_W, num_layers=6,
+                                      max_disp=ROUTE_LABELS - 2)
+    left, right = left.astype(np.float32), right.astype(np.float32)
+    t0 = time.perf_counter()
+    cfg = wide_disparity_config(left, ROUTE_LABELS)
+    calib_s = time.perf_counter() - t0
+    cfg = replace(cfg, compute_dtype="bf16", fused_update=True)
+    log(f"{tag}: calibrated in {calib_s:.2f} s: tiled={cfg.tile_px is not None} tile_px="
+        f"{cfg.tile_px} tile_u={cfg.tile_u} max_vertices={cfg.max_vertices} sort_mode="
+        f"{cfg.sort_mode} tile_bf16={cfg.tile_bf16}")
+
+    # the main path: launch counts read from zero just around one run
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = crf_stereo_infer(left, right, cfg, device=DEV)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = launches()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag}: first run {first_s:.2f} s; launches in one run: {got}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    k1xx = only_launched("K1xx", NITERS)
+    plan = out["plans"][0]
+    overflow = 0 if plan.tile_overflow is None else int(plan.tile_overflow)
+    check(overflow == 0 and int(plan.num_valid) <= cfg.max_vertices, "capacity overflow")
+    disp = out["disparity"]
+    check(disp.shape == (ROUTE_H, ROUTE_W) and disp.device.type == DEV,
+          "disparity shape or device")
+    check(bool(torch.isfinite(disp).all()), "non-finite disparity")
+    del out, plan, disp
+
+    def run(c, update=None):
+        if update is not None:
+            P.fused_energy_update = update
+        try:
+            return crf_stereo_infer(left, right, c, device=DEV)["disparity"].float().cpu()
+        finally:
+            P.fused_energy_update = fused_energy_update
+
+    def compare(what, a, b, tol, mean=False):
+        d = (a - b).abs()
+        log(f"{tag}: |{what}| max {float(d.max()):.3g} px, mean {float(d.mean()):.3g} px, "
+            f"{int((d > 0).sum())} of {d.numel()} pixels differ"
+            + ("" if tol is None else f" (gate: {'mean' if mean else 'max'} <= {tol})"))
+        if tol is not None:
+            check(float(d.mean() if mean else d.max()) <= tol, f"{what} over {tol} px")
+        return float(d.mean()), float(d.max())
+
+    # as in K and L: the bf16 state against the same run with the plain
+    # version in K1xx's place, the fused f32 loop against the unfused one
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        flips = {}
+        fused_bf16 = run(cfg, counting_flips(fused_energy_update, flips, "K1xx"))
+        plain_bf16 = run(cfg, fused_energy_update_reference)
+        diffs = {"plain_bf16": compare("K1xx's run - the plain version's in its place, bf16, "
+                                       "deterministic", fused_bf16, plain_bf16, BF16_MEAN_TOL,
+                                       mean=True)}
+        diffs.update(rounding_witness(tag, run, compare, cfg, fused_bf16, plain_bf16, flips))
+        cf = replace(cfg, compute_dtype="f32")
+        zero_launches()
+        fused_f32 = run(cf)
+        f32_launches = only_launched("K1xx", NITERS)
+        diffs["unfused_f32"] = compare("fused f32 run - the unfused f32 loop, deterministic",
+                                       fused_f32, run(replace(cf, fused_update=False)), DISP_ATOL)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # warm, with K1xx and with K1w_ffma launched in its place (not gated)
+    def warm(update=None):
+        if update is not None:
+            P.fused_energy_update = update
+        try:
+            crf_stereo_infer(left, right, cfg, device=DEV)  # warm-up
+            return median_ms(lambda: crf_stereo_infer(left, right, cfg, device=DEV), 3)
+        finally:
+            P.fused_energy_update = fused_energy_update
+
+    ms = warm()
+    ms_ffma = warm(fused_energy_update_wide_ffma)
+    log(f"{tag}: warm pipeline {ms:.3f} ms with K1xx, {ms_ffma:.3f} ms with K1w_ffma in its "
+        "place (median of 3, CUDA events)")
+    busy_ms, k1xx_ms = profile(f"pipeline {tag}",
+                               lambda: crf_stereo_infer(left, right, cfg, device=DEV),
+                               share_of="fused_energy_update_xxwide")
+    return {"launches_k1xx": k1xx, "launches": got, "launches_k1xx_f32": f32_launches, "ms": ms,
+            "ms_with_k1w_ffma": ms_ffma, "c_flip_share": flips, "device_busy_ms": busy_ms, "k1xx_device_ms": k1xx_ms,
+            "k1xx_share": k1xx_ms / busy_ms if busy_ms else None, "first_s": first_s,
+            "calibrate_s": calib_s, "tile_px": cfg.tile_px, "tile_u": cfg.tile_u,
+            "max_vertices": cfg.max_vertices, "sort_mode": cfg.sort_mode, "peak_bytes": peak,
+            "mean_max_abs_diff": diffs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1752,31 +1972,44 @@ def main() -> int:
 
     log("fused_energy_update against its plain version (K1 at L in "
         f"{K.SUPPORTED_L}, K1w at every other L up to {K.WIDE_MAX_L}, K1x up to "
-        f"{K.XWIDE_MAX_L}, K1w_ffma above):")
+        f"{K.XWIDE_MAX_L}, K1xx above; K1w_ffma launched directly):")
     n, n_full, n_mid = H * W, FULL_H * FULL_W, MID_H * MID_W
     errs = {}
     for rows, L in ((n, LABELS), (n - 7, LABELS), (n, 8), (n, 32), (n, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             errs[rows, L, dtype] = check_fused_update(K, rows, L, dtype)
-    for L in WIDE_CHECK_L + WIDE_EDGE_L + XWIDE_CHECK_L + (K.XWIDE_MAX_L,):
+    for L in WIDE_CHECK_L + WIDE_EDGE_L + XWIDE_CHECK_L + (K.XWIDE_MAX_L,) + XXWIDE_CHECK_L:
         for rows in (n, n - 7):
             for dtype in (torch.float32, torch.bfloat16):
                 errs[rows, L, dtype] = check_fused_update(K, rows, L, dtype)
+    for dtype in (torch.float32, torch.bfloat16):  # K1xx at a label count off every pad
+        errs[XXWIDE_ODD_L, XXWIDE_ODD_L, dtype] = check_fused_update(K, XXWIDE_ODD_L, XXWIDE_ODD_L,
+                                                                     dtype)
     errs_ffma = {}
-    for L in FFMA_CHECK_L:  # K1w_ffma, launched directly, at L that K1x now serves
-        for rows in (n, n - 7):
+    for L in FFMA_CHECK_L:  # K1w_ffma, launched directly: no L reaches it through the dispatch
+        for rows in (n, n - 7) if L < FFMA_CHECK_L[-1] else (n - 7,):
             for dtype in (torch.float32, torch.bfloat16):
                 errs_ffma[rows, L, dtype] = check_fused_update(K, rows, L, dtype, kernel="K1w_ffma")
-    for dtype in (torch.float32, torch.bfloat16):  # and through the dispatch above XWIDE_MAX_L
-        errs_ffma[n - 7, FFMA_ROUTED_L, dtype] = check_fused_update(K, n - 7, FFMA_ROUTED_L, dtype)
-    for dtype in (torch.float32, torch.bfloat16):  # K1w at fullres128's, K1x at phase L's shape
+    for dtype in (torch.float32, torch.bfloat16):  # K1w, K1x and K1xx at their phases' shapes
         errs[n_full, FULL_LABELS, dtype] = check_fused_update(K, n_full, FULL_LABELS, dtype,
                                                               on_device=True)
         errs[n_mid, MID_LABELS, dtype] = check_fused_update(K, n_mid, MID_LABELS, dtype,
                                                             on_device=True)
+        errs[XX_N, XX_LABELS, dtype] = check_fused_update(K, XX_N, XX_LABELS, dtype,
+                                                          on_device=True)
+        errs[ROUTE_H * ROUTE_W, ROUTE_LABELS, dtype] = check_fused_update(
+            K, ROUTE_H * ROUTE_W, ROUTE_LABELS, dtype, on_device=True)
+    # K1xx at phase L's shape, launched directly, to weigh it against K1x there
+    errs_xx_mid = {dtype: check_fused_update(K, n_mid, MID_LABELS, dtype, on_device=True,
+                                             kernel="K1xx")
+                   for dtype in (torch.float32, torch.bfloat16)}
     t_bf16 = time_fused_update(K, n, LABELS, torch.bfloat16)
     t_f32 = time_fused_update(K, n, LABELS, torch.float32)
-    t_wide = {f"bf16_L{L}": time_fused_update(K, n, L, torch.bfloat16) for L in (32, 64)}
+    t_wide = {f"{dt}_L{L}": time_fused_update(K, n, L, dtype) for L in (32, 64)
+              for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    # K1 at the state of the JAX bench suite's middlebury64 config (994x1482, L = 64)
+    t_mid64 = {dt: time_fused_update(K, n_mid, 64, dtype, on_device=True)
+               for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
     yardsticks = {key: time_yardsticks(K, n, LABELS, dtype)
                   for key, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
     w_full = {dt: time_fused_update(K, n_full, FULL_LABELS, dtype, on_device=True)
@@ -1801,6 +2034,18 @@ def main() -> int:
                   for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
     x_256 = {dt: time_fused_update(K, n_full, 256, dtype, on_device=True, kernel="K1x")
              for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    # K1xx at (393216, 1536), then K1w_ffma launched directly on the same
+    # inputs (the kernel that served L above 1024 before), then the plain
+    # version (timed beside each)
+    xx = {dt: time_fused_update(K, XX_N, XX_LABELS, dtype, on_device=True,
+                                plain_reps=XX_SLOW_REPS)
+          for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    xx_ffma = {dt: time_fused_update(K, XX_N, XX_LABELS, dtype, on_device=True, kernel="K1w_ffma",
+                                     reps=XX_SLOW_REPS, plain_reps=XX_SLOW_REPS)
+               for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    # K1xx at phase L's shape, on the inputs K1x is timed on there
+    xx_mid = {dt: time_fused_update(K, n_mid, MID_LABELS, dtype, on_device=True, kernel="K1xx")
+              for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
 
     a = run_pipeline("A (bench configuration, lean plan, bf16)", 0.5,
                      dict(tile_bf16=True, compute_dtype="bf16"), "packed1", f32=False)
@@ -1815,7 +2060,8 @@ def main() -> int:
     j = run_detection_training()
     k = run_fullres()
     wd = run_wide_disparity()
-    log(json.dumps({"pipelines": {"A": a, "B": b, "E": e, "K": k, "L": wd}}))
+    m = run_route_check()
+    log(json.dumps({"pipelines": {"A": a, "B": b, "E": e, "K": k, "L": wd, "M": m}}))
     log(json.dumps({"training": {"C": c, "D": d}}))
     log(json.dumps({"serving": {"F": f}, "world": {"G": g}, "operators": {"H": h}}))
     log(json.dumps({"detection": {"I": i, "J": j}}))
@@ -1827,26 +2073,29 @@ def main() -> int:
                     "geometry_xwide": {f"L{L}_{dt}": vars(K.xwide_geometry(n_mid, L, elt, sms))
                                        for L in XWIDE_CHECK_L + (K.XWIDE_MAX_L,)
                                        for dt, elt in (("bf16", 2), ("f32", 4))},
+                    "geometry_xxwide": {f"L{L}_{dt}": vars(K.xxwide_geometry(XX_N, L, elt, sms))
+                                        for L in XXWIDE_CHECK_L + (XXWIDE_ODD_L,)
+                                        for dt, elt in (("bf16", 2), ("f32", 4))},
                     "geometry_wide_ffma": {L: vars(K.wide_ffma_geometry(n_full, L))
-                                           for L in FFMA_CHECK_L + (FFMA_ROUTED_L,)}}))
+                                           for L in FFMA_CHECK_L}}))
 
     k1 = {
         "name": "fused_energy_update", "route": "cuda",
         "source": "depth_estimation_torch/csrc/meanfield.cu",
-        "replaces": "depth_estimation_tpu/ops/pallas/meanfield.py:55",
+        "replaces": "depth_estimation_tpu/ops/pallas/meanfield.py:56",
         "launches": a["launches"], "max_abs_err": errs[n, LABELS, torch.bfloat16],
         **t_bf16, "library_ms": None,
         "us": t_bf16["ms"] * 1e3, "bound_us": t_bf16["bound_ms"] * 1e3,
         "shape": [n, LABELS], "dtype": "bf16", "launches_b": b["launches"],
         "launches_f": f["launches"], "launches_k": k["launches_k1"],
         "max_abs_err_f32": errs[n, LABELS, torch.float32],
-        "f32": t_f32, **t_wide, "yardsticks": yardsticks,
+        "f32": t_f32, **t_wide, f"n{n_mid}_L64": t_mid64, "yardsticks": yardsticks,
         "design": "a warp per tile of rows, coalesced 16-byte loads, Mu in registers",
     }
     k1w = {
         "name": "fused_energy_update_wide", "route": "cuda",
         "source": "depth_estimation_torch/csrc/meanfield_wide.cu",
-        "replaces": "depth_estimation_tpu/ops/pallas/meanfield.py:55",
+        "replaces": "depth_estimation_tpu/ops/pallas/meanfield.py:56",
         "launches": k["launches_k1w"],
         "max_abs_err": errs[n_full, FULL_LABELS, torch.bfloat16],
         **w_full["bf16"], "library_ms": None,
@@ -1864,8 +2113,8 @@ def main() -> int:
                   "softmax in the registers of a tensor-core product (mma.sync) with q split "
                   "into bf16 hi+lo, 16-byte stores; f32: the plain version's arithmetic bit "
                   "for bit (PyTorch's warp-softmax order, in-order FFMA sum)",
-        # the FFMA design that served these L before (K1w_ffma, now L above
-        # XWIDE_MAX_L only), timed in this run on the same inputs; not on the main path
+        # the FFMA design that served these L before (K1w_ffma, now on no
+        # route), timed in this run on the same inputs; not on the main path
         "yardstick_ffma": {
             "name": "fused_energy_update_wide_ffma", "route": "cuda",
             "source": "depth_estimation_torch/csrc/meanfield_wide_ffma.cu",
@@ -1874,7 +2123,7 @@ def main() -> int:
     k1x = {
         "name": "fused_energy_update_xwide", "route": "cuda",
         "source": "depth_estimation_torch/csrc/meanfield_xwide.cu",
-        "replaces": "depth_estimation_tpu/ops/pallas/meanfield.py:55",
+        "replaces": "depth_estimation_tpu/ops/pallas/meanfield.py:56",
         "launches": wd["launches_k1x"], "max_abs_err": errs[n_mid, MID_LABELS, torch.bfloat16],
         **x_mid["bf16"], "library_ms": None,
         "us": x_mid["bf16"]["ms"] * 1e3, "bound_us": x_mid["bf16"]["bound_ms"] * 1e3,
@@ -1892,7 +2141,7 @@ def main() -> int:
                   "terms in registers (setmaxnreg); f32: the plain version's arithmetic "
                   "(warp-softmax order, in-order FFMA sum)",
         # K1w_ffma, the kernel that served L > 256 before, on the same inputs
-        # (launched directly; the route above XWIDE_MAX_L only)
+        # (launched directly)
         "yardstick_ffma": {
             "name": "fused_energy_update_wide_ffma", "route": "cuda",
             "source": "depth_estimation_torch/csrc/meanfield_wide_ffma.cu",
@@ -1902,9 +2151,52 @@ def main() -> int:
             "design": "a block per tile of rows, values read one by one, q in shared memory, "
                       "Mu staged through shared memory in 64-row blocks, 4x4 FFMA tiles a thread"},
     }
+    k1xx = {
+        "name": "fused_energy_update_xxwide", "route": "cuda",
+        "source": "depth_estimation_torch/csrc/meanfield_xxwide.cu",
+        "replaces": "depth_estimation_tpu/ops/pallas/meanfield.py:56",
+        # launches and max_abs_err at phase M's shape (204800, 1100); the
+        # times at (393216, 1536)
+        "launches": m["launches_k1xx"],
+        "max_abs_err": errs[ROUTE_H * ROUTE_W, ROUTE_LABELS, torch.bfloat16],
+        "max_abs_err_f32": errs[ROUTE_H * ROUTE_W, ROUTE_LABELS, torch.float32],
+        "max_abs_err_shape": [ROUTE_H * ROUTE_W, ROUTE_LABELS],
+        **xx["bf16"], "library_ms": None,
+        "us": xx["bf16"]["ms"] * 1e3, "bound_us": xx["bf16"]["bound_ms"] * 1e3,
+        "shape": [XX_N, XX_LABELS], "dtype": "bf16", "launches_f32_run": m["launches_k1xx_f32"],
+        f"max_abs_err_n{XX_N}_L{XX_LABELS}": {str(dt)[6:]: errs[XX_N, XX_LABELS, dt]
+                                              for dt in (torch.float32, torch.bfloat16)},
+        "f32": xx["f32"],
+        "max_abs_err_by_L": {f"L{L}_{str(dt)[6:]}": max(errs[n, L, dt], errs[n - 7, L, dt])
+                             for L in XXWIDE_CHECK_L for dt in (torch.float32, torch.bfloat16)},
+        f"max_abs_err_L{XXWIDE_ODD_L}_n{XXWIDE_ODD_L}": {
+            str(dt)[6:]: errs[XXWIDE_ODD_L, XXWIDE_ODD_L, dt]
+            for dt in (torch.float32, torch.bfloat16)},
+        "m_device_share": m["k1xx_share"],
+        # launched directly at phase L's shape, beside K1x there (the k1x entry)
+        f"n{n_mid}_L{MID_LABELS}": {**xx_mid, "max_abs_err": {
+            str(dt)[6:]: e for dt, e in errs_xx_mid.items()}},
+        "design": "a persistent warp-specialised block a SM of 4 producer warps and 2 consumer "
+                  "warpgroups (no setmaxnreg): producers write q in chunks of 32 labels into a "
+                  "ring of shared-memory stages beside Mu's (32 x 512) tiles, streamed by bulk "
+                  "copy (TMA), 512 output columns a pass; bf16: work items (64-row tile, pass) "
+                  "so that the blocks on one tile share it in L2, an online softmax (sums "
+                  "rescaled where a chunk's max grows), q as three exact bf16 terms, each "
+                  "warpgroup wgmma m64n256k16 on its 256 columns with both operands from shared "
+                  "memory; f32: work items of a 32-row tile, the plain version's arithmetic "
+                  "(warp-softmax order, in-order FFMA sum, 8x8 a thread)",
+        # K1w_ffma, the kernel that served L > 1024 before, on the same inputs
+        # (launched directly)
+        "yardstick_ffma": {
+            "name": "fused_energy_update_wide_ffma", "route": "cuda",
+            "source": "depth_estimation_torch/csrc/meanfield_wide_ffma.cu",
+            "launches_m": m["launches"]["K1w_ffma"], **xx_ffma["bf16"], "f32": xx_ffma["f32"],
+            "max_abs_err_L1025": {str(dt)[6:]: errs_ffma[n - 7, FFMA_CHECK_L[-1], dt]
+                                  for dt in (torch.float32, torch.bfloat16)}},
+    }
     log(f"chip_smoke: the whole script took {time.perf_counter() - t_start:.1f} s")
     log(card_line())
-    log(json.dumps({"kernels": [k1, k1w, k1x]}))
+    log(json.dumps({"kernels": [k1, k1w, k1x, k1xx]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -7,8 +7,8 @@ the JAX package's `models/pipeline.py`):
 
 With `fused_update` each iteration is one lattice filter and one launch of
 a CUDA kernel through `ops.cuda.meanfield.fused_energy_update`: K1 at 8,
-16, 32 or 64 labels, K1w at any other count (its plain version on the
-CPU).
+16, 32 or 64 labels, K1w at any other count up to 256, K1x up to 1024,
+K1xx above (its plain version on the CPU).
 """
 from __future__ import annotations
 

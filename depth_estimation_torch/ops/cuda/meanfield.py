@@ -7,7 +7,8 @@ S = W·C and the compatibility-transformed beliefs C = Q·Mu:
 
     E  = E0 + (S − C),   Q' = softmax(−E),   C' = Q'·Mu
 
-Four hand-written kernels serve every label count L (`kernel_for`):
+Four hand-written kernels serve every label count L (`kernel_for`), and a
+fifth is kept as a yardstick:
 
 - K1 (`csrc/meanfield.cu`) for L in `SUPPORTED_L`: each warp takes one
   tile of consecutive rows, loaded by coalesced 16-byte words, with Mu in
@@ -34,11 +35,27 @@ Four hand-written kernels serve every label count L (`kernel_for`):
   (q split into three bf16 terms, so that C' keeps its f32 accuracy), in
   f32 by FFMA in the plain version's order, as K1w. `xwide_geometry`
   computes its rows a tile, pass width, grid and shared memory.
-- K1w_ffma (`csrc/meanfield_wide_ffma.cu`, `fused_energy_update_wide_ffma`)
-  for L above `XWIDE_MAX_L`, the route of last resort: a block per tile of
-  rows, q in shared memory and Mu staged through it in blocks, the product
-  on the FFMA pipes; `wide_ffma_geometry` computes its tiles and shared
-  memory.
+- K1xx (`csrc/meanfield_xxwide.cu`, `fused_energy_update_xxwide`) for
+  every L above `XWIDE_MAX_L`, with no upper limit: one persistent block a
+  SM, warp-specialised. Producer warps write q in chunks of 32 labels into
+  a ring of shared-memory stages beside Mu's (32 × 512) tiles, streamed by
+  bulk copies; C' is computed 512 output columns a pass, q produced again
+  in each pass. bf16: a work item is a (64-row tile, pass) pair, so that
+  the blocks on one tile share its rows in L2; an online softmax (the sums
+  rescaled where a chunk's max grows), q in three exact bf16 terms, and two
+  consumer warpgroups run `wgmma` m64n256k16 on their halves of the
+  columns, both operands from shared memory. f32: a work item is a 32-row
+  tile; the plain version's arithmetic (PyTorch's warp-softmax order, which
+  its own softmax takes up to 2048 labels, the next tile's row statistics
+  walked between this one's chunks; Q'·Mu summed over l in order by FFMA).
+  `xxwide_geometry` computes its rows a tile, passes, work items, grid and
+  shared memory.
+- K1w_ffma (`csrc/meanfield_wide_ffma.cu`, `fused_energy_update_wide_ffma`),
+  the earlier FFMA design, now on no route of `kernel_for`: kept as the
+  yardstick the tensor-core kernels are timed against, launched directly.
+  A block per tile of rows, q in shared memory and Mu staged through it in
+  blocks, the product on the FFMA pipes; `wide_ffma_geometry` computes its
+  tiles and shared memory.
 
 The geometries are computed here, where the CPU tests reach them, and
 re-checked by the C side. A CUDA tensor goes to a kernel or raises; a CPU
@@ -46,6 +63,7 @@ tensor goes to `fused_energy_update_reference`. Each wrapper counts its own
 kernel's launches (`fused_energy_update.launches` for K1,
 `fused_energy_update_wide.launches` for K1w,
 `fused_energy_update_xwide.launches` for K1x,
+`fused_energy_update_xxwide.launches` for K1xx,
 `fused_energy_update_wide_ffma.launches` for K1w_ffma).
 """
 from __future__ import annotations
@@ -56,11 +74,12 @@ from dataclasses import dataclass
 import torch
 
 __all__ = ["fused_energy_update", "fused_energy_update_wide", "fused_energy_update_xwide",
-           "fused_energy_update_wide_ffma", "fused_energy_update_reference", "kernel_for",
-           "launch_geometry", "wide_geometry", "xwide_geometry", "wide_ffma_geometry",
-           "wide_config", "xwide_smem_bytes", "xwide_stage_labels", "xwide_pass_cols",
-           "Geometry", "WideGeometry", "XwideGeometry", "WideFfmaGeometry", "SUPPORTED_L",
-           "WIDE_MAX_L", "XWIDE_MAX_L"]
+           "fused_energy_update_xxwide", "fused_energy_update_wide_ffma",
+           "fused_energy_update_reference", "kernel_for", "launch_geometry", "wide_geometry",
+           "xwide_geometry", "xxwide_geometry", "wide_ffma_geometry", "wide_config",
+           "xwide_smem_bytes", "xwide_stage_labels", "xwide_pass_cols", "xxwide_smem_bytes",
+           "Geometry", "WideGeometry", "XwideGeometry", "XxwideGeometry", "WideFfmaGeometry",
+           "SUPPORTED_L", "WIDE_MAX_L", "XWIDE_MAX_L"]
 
 SUPPORTED_L = (8, 16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,16 +89,24 @@ WARPS = 4  # warps in a block: 128 threads, __launch_bounds__(128, 4)
 TILE_WORDS = 128  # 16-byte words of each array in a warp tile: 4 a lane
 
 # K1w's geometry (must agree with csrc/meanfield_wide.cu)
-WIDE_MAX_L = 256  # the largest L K1w serves; above it K1w_ffma
+WIDE_MAX_L = 256  # the largest L K1w serves; above it K1x
 WIDE_Q_STRIDE = 12  # f32: floats a label's 8 rows take in a warp's q tile
 
 # K1x's geometry (must agree with csrc/meanfield_xwide.cu)
-XWIDE_MAX_L = 1024  # the largest L K1x serves (32 values a lane); above it K1w_ffma
+XWIDE_MAX_L = 1024  # the largest L K1x serves (32 values a lane); above it K1xx
 XWIDE_PAD = 64  # L is padded to a multiple of this
 XWIDE_ROWS = (64, 32, 16)  # rows a tile, the largest that fits first
 XWIDE_THREADS = 384  # a block: producer and consumer warps, 8 + 4 in bf16, 4 + 8 in f32
 XWIDE_STAGES = {2: 4, 4: 3}  # stages of the Mu ring, by element size
 XWIDE_BARRIER_BYTES = 64  # the ring's mbarriers
+
+# K1xx's geometry (must agree with csrc/meanfield_xxwide.cu), by element size
+XXWIDE_CHUNK = 32  # labels a stage: L is padded to a multiple of this
+XXWIDE_ROWS = {2: 64, 4: 32}  # rows a tile
+XXWIDE_PASS_COLS = 512  # output columns a pass (bf16: 256 a consumer warpgroup)
+XXWIDE_STAGES = {2: 5, 4: 3}  # stages of the ring
+XXWIDE_THREADS = 384  # a block: 4 producer warps, 8 consumer warps
+XXWIDE_AUX_BYTES = 640  # bf16: a stage's row factors, 1 / sums and flags
 
 # K1w_ffma's geometry (must agree with csrc/meanfield_wide_ffma.cu)
 WIDE_FFMA_THREADS = 256  # a block: __launch_bounds__(256, 2)
@@ -119,14 +146,14 @@ def launch_geometry(n: int, L: int, elt: int) -> Geometry:
 def kernel_for(L: int) -> str:
     """Which kernel serves L labels on the card: 'K1' for L in
     SUPPORTED_L, 'K1w' for every other L up to WIDE_MAX_L, 'K1x' from
-    there up to XWIDE_MAX_L, 'K1w_ffma' above it."""
+    there up to XWIDE_MAX_L, 'K1xx' above it."""
     if L < 1:
         raise ValueError(f"L={L}: the update needs at least one label")
     if L in SUPPORTED_L:
         return "K1"
     if L <= WIDE_MAX_L:
         return "K1w"
-    return "K1x" if L <= XWIDE_MAX_L else "K1w_ffma"
+    return "K1x" if L <= XWIDE_MAX_L else "K1xx"
 
 
 def wide_config(elt: int, lp: int) -> dict:
@@ -236,7 +263,7 @@ def xwide_geometry(n: int, L: int, elt: int, sms: int) -> XwideGeometry:
     """K1x's geometry for (n, L) rows of `elt`-byte values on a card of
     `sms` SMs: LP = L padded to a multiple of XWIDE_PAD, the most rows a
     tile (XWIDE_ROWS) whose two q buffers and Mu ring fit the card's shared
-    memory, one block a SM or a tile. Raises above XWIDE_MAX_L (K1w_ffma's
+    memory, one block a SM or a tile. Raises above XWIDE_MAX_L (K1xx's
     labels)."""
     if n < 1:
         raise ValueError(f"n={n}: the kernel needs at least one row")
@@ -248,6 +275,64 @@ def xwide_geometry(n: int, L: int, elt: int, sms: int) -> XwideGeometry:
     pc = xwide_pass_cols(elt, rows)
     return XwideGeometry(lp, rows, pc, -(-lp // pc) * pc, XWIDE_THREADS, num_tiles,
                          min(sms, num_tiles), xwide_smem_bytes(elt, rows, lp))
+
+
+def xxwide_smem_bytes(elt: int) -> int:
+    """K1xx's dynamic shared memory, the same at every L: XXWIDE_STAGES
+    stages of a q chunk (bf16: three bf16 terms of XXWIDE_ROWS rows ×
+    XXWIDE_CHUNK labels; f32: XXWIDE_CHUNK labels of the rows + 4 floats),
+    a Mu tile (XXWIDE_CHUNK × XXWIDE_PASS_COLS) and, in bf16, the rows'
+    factors and flags (XXWIDE_AUX_BYTES); in f32 the row statistics of two
+    tiles (a float2 a row); and the ring's full and empty mbarriers."""
+    rows, stages = XXWIDE_ROWS[elt], XXWIDE_STAGES[elt]
+    mu = XXWIDE_CHUNK * XXWIDE_PASS_COLS * elt
+    if elt == 2:
+        stage, stats = 3 * rows * XXWIDE_CHUNK * 2 + mu + XXWIDE_AUX_BYTES, 0
+    else:
+        stage, stats = XXWIDE_CHUNK * (rows + 4) * 4 + mu, 2 * rows * 8
+    return stages * stage + stats + 2 * stages * 8
+
+
+@dataclass(frozen=True)
+class XxwideGeometry:
+    """A launch of K1xx: `grid` persistent blocks of `threads` threads
+    (producer warps, then consumer warps) walk `num_items` work items: in
+    bf16 the (tile, pass) pairs, in f32 the tiles (each all its passes), of
+    `num_tiles` tiles of `rows` rows. L is padded to `lp` labels, `lp` /
+    XXWIDE_CHUNK stages a pass; `passes` passes of `pass_cols` output
+    columns, so Mu's stage images (the wrapper's scratch) hold lp rows of
+    `mu_cols` columns; `smem_bytes` of dynamic shared memory
+    (`xxwide_smem_bytes`)."""
+
+    lp: int
+    rows: int
+    pass_cols: int
+    passes: int
+    mu_cols: int
+    threads: int
+    num_tiles: int
+    num_items: int
+    grid: int
+    smem_bytes: int
+
+
+def xxwide_geometry(n: int, L: int, elt: int, sms: int) -> XxwideGeometry:
+    """K1xx's geometry for (n, L) rows of `elt`-byte values on a card of
+    `sms` SMs: LP = L padded to XXWIDE_CHUNK, XXWIDE_ROWS rows a tile, L /
+    XXWIDE_PASS_COLS passes rounded up, one block a SM or a work item. Its
+    shared memory does not grow with L, so any L ≥ 1 has a geometry (the
+    dispatch sends it XWIDE_MAX_L + 1 and up)."""
+    if n < 1:
+        raise ValueError(f"n={n}: the kernel needs at least one row")
+    if L < 1:
+        raise ValueError(f"L={L}: the kernel needs at least one label")
+    lp = -(-L // XXWIDE_CHUNK) * XXWIDE_CHUNK
+    rows, cols = XXWIDE_ROWS[elt], XXWIDE_PASS_COLS
+    passes = -(-L // cols)
+    num_tiles = -(-n // rows)
+    items = num_tiles * passes if elt == 2 else num_tiles
+    return XxwideGeometry(lp, rows, cols, passes, passes * cols, XXWIDE_THREADS, num_tiles, items,
+                          min(sms, items), xxwide_smem_bytes(elt))
 
 
 @dataclass(frozen=True)
@@ -330,7 +415,7 @@ def _checked(E0, S, C, Mu):
 
 
 def _launch(wrapper, library: str, E0, S, C, Mu, geometry):
-    """What the four wrappers share: the plain version for a CPU tensor,
+    """What the five wrappers share: the plain version for a CPU tensor,
     uncounted; else the arrays checked, E and C' allocated and `library`'s
     `<wrapper>_launch` called with the launch's ints that `geometry(n, L,
     elt)` gives (and, where it gives a scratch size, a scratch array after
@@ -362,14 +447,14 @@ def fused_energy_update(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
     """(E, C') from (n, L) E0, S, C and (L, L) Mu, all of one dtype
     (float32 or bfloat16) and on one device. On the card, L in SUPPORTED_L
     launches K1, every other L up to WIDE_MAX_L K1w, L up to XWIDE_MAX_L
-    K1x and a larger L K1w_ffma (`kernel_for`)."""
+    K1x and a larger L K1xx (`kernel_for`)."""
     if E0.device.type == "cpu":
         return fused_energy_update_reference(E0, S, C, Mu)
     _, L = _checked(E0, S, C, Mu)
     kernel = kernel_for(L)
     if kernel != "K1":
         return {"K1w": fused_energy_update_wide, "K1x": fused_energy_update_xwide,
-                "K1w_ffma": fused_energy_update_wide_ffma}[kernel](E0, S, C, Mu)
+                "K1xx": fused_energy_update_xxwide}[kernel](E0, S, C, Mu)
     for name, x in (("E0", E0), ("S", S), ("C", C), ("Mu", Mu)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -408,10 +493,23 @@ def fused_energy_update_xwide(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor
     return _launch(fused_energy_update_xwide, "meanfield_xwide", E0, S, C, Mu, geometry)
 
 
+def fused_energy_update_xxwide(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
+                               Mu: torch.Tensor):
+    """K1xx's wrapper: (E, C') as `fused_energy_update` computes them, at any
+    L ≥ 1 (it serves XWIDE_MAX_L + 1 and up) and any row alignment (bf16
+    rows move by 16 or 8 bytes where the arrays' alignment and L allow,
+    else value by value). Its scratch holds Mu's stage images."""
+    def geometry(n, L, elt):
+        g = xxwide_geometry(n, L, elt, _sms(E0.device))
+        return (g.lp, g.rows, g.passes, g.grid, g.smem_bytes), g.lp * g.mu_cols
+    return _launch(fused_energy_update_xxwide, "meanfield_xxwide", E0, S, C, Mu, geometry)
+
+
 def fused_energy_update_wide_ffma(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
                                   Mu: torch.Tensor):
     """K1w_ffma's wrapper: (E, C') as `fused_energy_update` computes them, at
-    any L ≥ 1 (up to 54,012) and any row alignment."""
+    any L ≥ 1 (up to 54,012) and any row alignment. No L reaches it through
+    `fused_energy_update`: it is launched directly, as a yardstick."""
     def geometry(n, L, elt):
         g = wide_ffma_geometry(n, L)
         return (g.tile_rows, g.q_stride, g.col_chunk, g.num_tiles, g.smem_bytes), 0
@@ -422,4 +520,5 @@ def fused_energy_update_wide_ffma(E0: torch.Tensor, S: torch.Tensor, C: torch.Te
 fused_energy_update.launches = 0  # K1's launches, for run-time path checks
 fused_energy_update_wide.launches = 0  # K1w's launches
 fused_energy_update_xwide.launches = 0  # K1x's launches
+fused_energy_update_xxwide.launches = 0  # K1xx's launches
 fused_energy_update_wide_ffma.launches = 0  # K1w_ffma's launches

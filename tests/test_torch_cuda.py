@@ -1,5 +1,5 @@
-"""The PyTorch port's CUDA kernels (K1, K1w, K1x and K1w_ffma) against
-their plain versions, on a card.
+"""The PyTorch port's CUDA kernels (K1, K1w, K1x, K1xx and K1w_ffma)
+against their plain versions, on a card.
 
 These tests import neither JAX nor the JAX package, so a GPU machine without
 JAX runs them, skipping the JAX-specific conftest:
@@ -30,7 +30,8 @@ def _check(arrays, dtype):
     its own counter, against the plain version on the same inputs."""
     arrays = [torch.from_numpy(a).to("cuda", dtype) for a in arrays]
     counters = {"K1": T.fused_energy_update, "K1w": T.fused_energy_update_wide,
-                "K1x": T.fused_energy_update_xwide, "K1w_ffma": T.fused_energy_update_wide_ffma}
+                "K1x": T.fused_energy_update_xwide, "K1xx": T.fused_energy_update_xxwide,
+                "K1w_ffma": T.fused_energy_update_wide_ffma}
     before = {k: f.launches for k, f in counters.items()}
     E_k, C_k = T.fused_energy_update(*arrays)
     torch.cuda.synchronize()
@@ -78,7 +79,7 @@ def test_cuda_kernel_at_the_edges_of_its_geometry(case, L, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L", T.SUPPORTED_L + (3, 24, 100, 128, 256, 300))
+@pytest.mark.parametrize("L", T.SUPPORTED_L + (3, 24, 100, 128, 256, 300, 1025, 1100, 2048, 4099))
 def test_cuda_kernel_subtracts_the_max_from_large_energies(L, dtype):
     """Energies of magnitude ~1e3: exp(-E) alone would underflow to 0 in f32."""
     _needs_card()
@@ -127,11 +128,13 @@ def test_wide_kernel_at_the_edges_of_its_geometry(case, L, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L", [1, 3, 12, 24, 100, 128, 256, 300])
+@pytest.mark.parametrize("L", [1, 3, 12, 24, 100, 128, 256, 300, 1025])
 @pytest.mark.parametrize("n", [1, 7, 110585])
 def test_wide_ffma_kernel_matches_plain_version(n, L, dtype):
-    """K1w_ffma, which serves L above XWIDE_MAX_L, launched directly at the
-    label counts it served alone before K1w took L up to 256."""
+    """K1w_ffma, the earlier FFMA design (on no route of the dispatch now, a
+    yardstick), launched directly at the label counts it served alone
+    before K1w took L up to 256, and above XWIDE_MAX_L, which it served
+    before K1xx."""
     _needs_card()
     arrays = [torch.from_numpy(a).to("cuda", dtype) for a in _inputs(6, n, L)]
     before = T.fused_energy_update_wide_ffma.launches
@@ -241,3 +244,70 @@ def test_xwide_kernel_below_its_range(L, dtype):
     _needs_card()
     arrays = [torch.from_numpy(a).to("cuda", dtype) for a in _inputs(12, 777, L)]
     _check_direct(T.fused_energy_update_xwide, arrays, dtype)
+
+
+XXWIDE_L = [1025, 1088, 1100, 1536, 2048, 4099]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", XXWIDE_L)
+@pytest.mark.parametrize("n", [1, 63, 4099])
+def test_xxwide_kernel_matches_plain_version(n, L, dtype):
+    """K1xx, which serves every L above XWIDE_MAX_L, through the dispatch at
+    ragged row counts (a lone partial tile, and work items of a few tiles);
+    in f32 it repeats the plain version's arithmetic bit for bit up to 2048
+    labels, where PyTorch's softmax takes its warp kernel (above it,
+    PyTorch's block kernel sums in another order: F32_TOL). The witness is
+    the plain version on 4099 rows, of which the kernel's n are the first,
+    as for K1x (at 1 and 63 rows cuBLAS sums Q'·Mu in another order)."""
+    _needs_card()
+    assert T.kernel_for(L) == "K1xx"
+    _check(_inputs(13, n, L), dtype)
+    if dtype == torch.float32 and L <= 1536:
+        padded = [torch.from_numpy(a).to("cuda") for a in _inputs(13, 4099, L)]
+        rows = [a[:n] for a in padded[:3]] + padded[3:]
+        E_k, C_k = T.fused_energy_update_xxwide(*rows)
+        E_r, C_r = T.fused_energy_update_reference(*padded)
+        assert torch.equal(E_k, E_r[:n]) and torch.equal(C_k, C_r[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1025, 1026, 1100, 1537, 4099])
+def test_xxwide_kernel_takes_rows_off_16_byte_alignment(L, dtype):
+    """Contiguous arrays that start one element into their storage: K1xx
+    moves bf16 rows value by value (or by 8 bytes where they allow) and
+    stores C' value by value, and tiles Mu from any alignment."""
+    _needs_card()
+    arrays = [torch.from_numpy(a).to("cuda", dtype) for a in _inputs(14, 1001, L)]
+    shifted = []
+    for a in arrays:
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device="cuda")
+        shifted.append(buf[1:].view(a.shape).copy_(a))
+    assert shifted[0].data_ptr() % 16 == shifted[0].element_size()
+    _check_direct(T.fused_energy_update_xxwide, shifted, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 64, 300, 1024])
+def test_xxwide_kernel_below_its_range(L, dtype):
+    """K1xx launched directly at label counts the other kernels serve (it
+    takes any L; the dispatch sends it only those above 1024)."""
+    _needs_card()
+    arrays = [torch.from_numpy(a).to("cuda", dtype) for a in _inputs(15, 777, L)]
+    _check_direct(T.fused_energy_update_xxwide, arrays, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_xxwide_bf16_rescales_where_a_later_chunk_holds_the_max(where):
+    """Rows whose largest -E lies 30 log2 units above the first chunk's, in
+    the last chunk: the bf16 path's online softmax rescales its sums and
+    accumulators there, and still matches the plain version."""
+    _needs_card()
+    e0, s, c, mu = _inputs(16, 2000, 1100)
+    at = 3 if where == "first" else 1099
+    e0[:, at] -= 30.0 / np.log2(np.e)
+    _check((e0, s, c, mu), torch.bfloat16)

@@ -44,12 +44,12 @@ def test_plain_version_matches_pallas_interpret_at_any_L(L):
 @pytest.mark.parametrize("L,want", [(1, "K1w"), (3, "K1w"), (8, "K1"), (12, "K1w"), (16, "K1"),
                                     (24, "K1w"), (32, "K1"), (64, "K1"), (128, "K1w"),
                                     (255, "K1w"), (256, "K1w"), (257, "K1x"),
-                                    (300, "K1x"), (54012, "K1w_ffma")])
+                                    (300, "K1x"), (54012, "K1xx")])
 def test_kernel_for_label_count(L, want):
     assert T.kernel_for(L) == want
     assert (want == "K1") == (L in T.SUPPORTED_L)
     assert (want == "K1x") == (T.WIDE_MAX_L == 256 < L <= T.XWIDE_MAX_L)
-    assert (want == "K1w_ffma") == (L > T.XWIDE_MAX_L)
+    assert (want == "K1xx") == (L > T.XWIDE_MAX_L)
 
 
 def test_kernel_for_refuses_no_labels():
@@ -94,7 +94,7 @@ def test_wide_geometry(L):
 
 
 def test_wide_geometry_at_its_limits():
-    """A few rows launch one block; above WIDE_MAX_L it refuses (K1w_ffma's
+    """A few rows launch one block; above WIDE_MAX_L it refuses (K1x's
     labels), as it does an empty input."""
     g = T.wide_geometry(5, 200, 4, 132)
     assert (g.num_tiles, g.grid_x, g.grid_y) == (1, 1, 2)

@@ -76,10 +76,10 @@ def test_xwide_geometry_at_its_limits():
 
 
 @pytest.mark.parametrize("L,want", [(256, "K1w"), (257, "K1x"), (1024, "K1x"),
-                                    (1025, "K1w_ffma")])
+                                    (1025, "K1xx")])
 def test_kernel_for_sends_257_to_xwide_max_l_to_k1x(L, want):
     assert T.kernel_for(L) == want
-    assert T.kernel_for(T.XWIDE_MAX_L) == "K1x" and T.kernel_for(T.XWIDE_MAX_L + 1) == "K1w_ffma"
+    assert T.kernel_for(T.XWIDE_MAX_L) == "K1x" and T.kernel_for(T.XWIDE_MAX_L + 1) == "K1xx"
 
 
 def _split(q, terms):

@@ -224,10 +224,12 @@ def test_build_is_keyed_by_source_and_out_of_git():
     assert "depth_estimation_torch/_build/" in ignored
     assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == ["meanfield", "meanfield_wide",
                                                                "meanfield_wide_ffma",
-                                                               "meanfield_xwide"]
+                                                               "meanfield_xwide",
+                                                               "meanfield_xxwide"]
     assert build._target("meanfield_wide").name.startswith("libmeanfield_wide-")
     assert build._target("meanfield_wide_ffma").name.startswith("libmeanfield_wide_ffma-")
     assert build._target("meanfield_xwide").name.startswith("libmeanfield_xwide-")
+    assert build._target("meanfield_xxwide").name.startswith("libmeanfield_xxwide-")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert ("-Xptxas", "-v") in zip(build.NVCC_FLAGS, build.NVCC_FLAGS[1:])
 
