@@ -7,7 +7,8 @@ Drives the port's flagship stereo inference, `crf_stereo_infer` on a
 288×384 pair with 16 labels, a 5-D bilateral guide and 5 mean-field
 iterations, through both lattice plan paths, then its training path, its
 serving, multi-device, operator and detection paths, fullres128, a
-wide-disparity frame and the route above 1024 labels:
+wide-disparity frame, the route above 1024 labels and the tools' entry
+points:
 
   A. the bench configuration: calibrated capacity, 32-px tiles with bf16
      incidence blocks, bf16 mean-field state and the fused update, on a
@@ -102,7 +103,26 @@ wide-disparity frame and the route above 1024 labels:
      plain version with that share of its C' values moved by one bf16 ulp
      (two seeds), and with C' summed in float64 and rounded once; the warm
      pipeline with K1xx and with K1w_ffma launched in its place (median of
-     3 each), K1xx's share of one profile and the peak device memory.
+     3 each), K1xx's share of one profile and the peak device memory;
+  N. the entry points of `depth_estimation_torch.tools`, called as a user
+     calls them: `profile_stages --fused-update 1 --pair` on A's, K's and
+     L's own pairs (saved to a temporary .npz) with their phases'
+     calibrated capacity, sort mode, tiles and bf16 state passed as flags:
+     every stage's time finite and positive, the tool's configuration the
+     phase's with no vertex dropped, K1, K1w and K1x 5 times a pipeline
+     call, and the tool's pipeline EPE within 0.1 px of the same config's
+     direct run; `tiled_stereo_study --mode time` at 994x1482, 64 labels,
+     on a one-rank world (the one-tile map at halo 0 within 5e-3 px of the
+     untiled one, both in deterministic mode; at halo 16 within 1e-4 px
+     mean of the same call on the CPU, and within 5e-3 px max plus what one
+     float32 rounding of the left image moves the CPU's map; the zero rows
+     padded at the frame's edges move the halo-16 map off the untiled one,
+     printed);
+     `train_detect_scaled --steps 96` (finite losses, the grafted body
+     bit-equal after the heads phase, every parameter moved by the
+     all-layers phase; the median step after each phase's first 16) and
+     `train_coco_scaled --steps 48 --items 8` (the tree reads back as 8
+     items, finite losses). Their JSON lines go to chiprun_out/.
 
 It builds the CUDA kernels from `depth_estimation_torch/csrc` and the C++
 CPU lattice (one compiler per source, all at once), prints what `ptxas`
@@ -120,7 +140,8 @@ yardstick of the FFMA design K1w replaced there, at phase L's shape beside
 K1x and at (393216, 1536) beside K1xx; K1xx also at phase L's shape),
 counts the kernels' launches in
 every phase (A, B, E and F launch K1 5 times a frame, K launches K1w 5
-times, L K1x 5 times, M K1xx 5 times, the others launch none of them),
+times, L K1x 5 times, M K1xx 5 times, N's three stage splits K1, K1w and
+K1x 5 times a pipeline call, the others launch none of them),
 and checks each
 pipeline's disparity against the same pipeline without the kernel on the
 card and against the port's own CPU run (the path the CPU tests hold
@@ -138,6 +159,7 @@ import subprocess
 import sys
 import time
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -151,6 +173,11 @@ F32_TOL = dict(rtol=1e-5, atol=1e-5)
 SM_REGISTERS = 65536  # 32-bit registers of an SM, shared by its resident blocks
 DISP_ATOL = 5e-3  # px: the tolerance of the JAX package's fused-update test
 BF16_MEAN_TOL = 0.1  # px: mean |Δdisparity| where the two sides round in bf16
+# px: mean |Δdisparity| of two float32 maps of a full frame; at 994x1482,
+# L = 64 the card's and the CPU's, two card runs and the CPU's map with its
+# input one rounding off differ by 5-7e-6 px mean, while their max (up to
+# 0.008 px at a few pixels) exceeds DISP_ATOL (N4)
+F32_MEAN_TOL = 1e-4
 PIECES_ATOL = 1e-4  # px: pieces only reorder float32 splat sums
 # C's first step, card against CPU, as fractions of the CPU's magnitude. The
 # loss, and the loss and every gradient of the same step with float32
@@ -226,6 +253,14 @@ MID_CROP_H, MID_CROP_W = 96, 384
 # than 1024 labels, so this is a check of the route): a 160x1280 synthetic
 # pair at 1100 labels, calibrated as L
 ROUTE_H, ROUTE_W, ROUTE_LABELS = 160, 1280, 1100
+# N: the tools' entry points. The per-stage profiler's reps at A's size and
+# at K's and L's (its plan and pipeline stages take tens to hundreds of ms
+# there), the detection runs' steps (half heads-only in N5), N6's items and
+# held-out items, the first steps of a training phase left out of its
+# steady step time; their JSON lines go to TOOLS_OUT
+N1_REPS, N_WIDE_REPS = 10, 5
+N5_STEPS, N6_STEPS, N6_ITEMS, N6_HOLDOUT, N_WARM_STEPS = 96, 48, 8, 2, 16
+TOOLS_OUT = Path(__file__).resolve().parent / "chiprun_out"
 
 
 def log(msg: str) -> None:
@@ -265,21 +300,22 @@ def counters() -> dict:
     """The fused-update kernels' wrappers, by kernel name."""
     from depth_estimation_torch.ops.cuda import meanfield as K
 
-    return {"K1": K.fused_energy_update, "K1w": K.fused_energy_update_wide,
-            "K1x": K.fused_energy_update_xwide, "K1xx": K.fused_energy_update_xxwide,
-            "K1w_ffma": K.fused_energy_update_wide_ffma}
+    return K.KERNELS
 
 
 def zero_launches() -> None:
     """Set the launch counts of the fused-update kernels (K1, K1w, K1x, K1xx
     and K1w_ffma) to 0."""
-    for fn in counters().values():
-        fn.launches = 0
+    from depth_estimation_torch.ops.cuda import meanfield as K
+
+    K.zero_launch_counts()
 
 
 def launches() -> dict:
     """Each fused-update kernel's launches since `zero_launches`."""
-    return {name: fn.launches for name, fn in counters().items()}
+    from depth_estimation_torch.ops.cuda import meanfield as K
+
+    return K.launch_counts()
 
 
 def only_launched(name: str, want: int) -> int:
@@ -1949,6 +1985,199 @@ def run_route_check() -> dict:
             "mean_max_abs_diff": diffs}
 
 
+# ---------------------------------------------------------------------------
+# N: the entry points of depth_estimation_torch.tools
+# ---------------------------------------------------------------------------
+
+
+def check_stage_split(tag: str, res: dict, kernel: str, cfg, epe_direct: float) -> dict:
+    """Every stage of a `profile_stages` line timed finite and positive;
+    its configuration the phase's (capacity, sort mode, tiles, state
+    dtype) with no vertex dropped; its pipeline stage launching `kernel` 5
+    times a call and no other fused-update kernel (the tool's own count per
+    call, and the counts since `zero_launches`); its pipeline's EPE within
+    BF16_MEAN_TOL of the same configuration's run outside the tool."""
+    from depth_estimation_torch.tools.profile_stages import STAGES
+
+    ms = {name: res[f"{name}_ms"] for name in STAGES}
+    check(all(np.isfinite(v) and v > 0 for v in ms.values()), f"{tag}: stage times {ms}")
+    want = {"capacity": cfg.max_vertices, "sort_mode": cfg.sort_mode,
+            "tile_px": cfg.tile_px, "tile_u": cfg.tile_u if cfg.tile_px else None,
+            "tiled": (2 if cfg.tile_bf16 else 1) if cfg.tile_px else 0,
+            "compute_dtype": cfg.compute_dtype}
+    got_cfg = {k: res[k] for k in want}
+    check(got_cfg == want, f"{tag}: the tool's configuration {got_cfg}, the phase's {want}")
+    check(res["num_valid"] <= res["capacity"] and not res["tile_overflow"],
+          f"{tag}: {res['num_valid']} vertices for {res['capacity']} slots, "
+          f"{res['tile_overflow']} tile entries dropped")
+    per_call = res["pipeline_launches_per_call"]
+    check(per_call == {k: float(NITERS) if k == kernel else 0.0 for k in per_call},
+          f"{tag}: launches per pipeline call {per_call}, want {NITERS} of {kernel}")
+    got = launches()
+    check(got[kernel] > 0 and all(v == 0 for k, v in got.items() if k != kernel),
+          f"{tag}: launches {got}")
+    check(abs(res["pipeline_epe"] - epe_direct) <= BF16_MEAN_TOL,
+          f"{tag}: the tool's pipeline EPE {res['pipeline_epe']}, the direct run's {epe_direct}")
+    order = sorted(ms, key=ms.get, reverse=True)
+    log(f"{tag}: stage ms " + ", ".join(f"{k} {ms[k]:.3f}" for k in STAGES))
+    log(f"{tag}: stages by time {order}; {kernel} launched {got[kernel]} times "
+        f"({per_call[kernel]:.0f} a pipeline call); capacity {res['capacity']}, "
+        f"{res['num_valid']} vertices occupied; pipeline EPE {res['pipeline_epe']:.4f} px "
+        f"(the direct run {epe_direct:.4f} px), bad-2 {res['pipeline_bad2']:.4f}")
+    return {"stage_ms": ms, "order": order, "launches_per_call": per_call[kernel],
+            "launches": got[kernel], "capacity": res["capacity"], "num_valid": res["num_valid"],
+            "pipeline_epe": res["pipeline_epe"], "direct_epe": epe_direct}
+
+
+def stage_split_cases() -> list:
+    """(tag, pair, ground truth, config, kernel) of N1-N3: phase A's,
+    K's and L's pairs, each calibrated as its phase calibrates it, in bf16
+    state with the fused update."""
+    from depth_estimation_torch.data.synthetic import make_stereo_pair
+    from depth_estimation_torch.models.pipeline import CRFStereoConfig, calibrate_capacity
+
+    a_left, a_right, a_gt = synthetic_pair(0.5)
+    a_cfg = calibrate_capacity(a_left, CRFStereoConfig(num_disp=LABELS, niters=NITERS),
+                               tiled=True, tile_px=TILE_PX, device=DEV)
+    a_cfg = replace(a_cfg, tile_bf16=True)
+    k_left, k_right, k_gt = make_stereo_pair(np.random.RandomState(0), FULL_H, FULL_W,
+                                             num_layers=6, max_disp=FULL_MAX_DISP)
+    l_left, l_right, l_gt = make_stereo_pair(np.random.RandomState(0), MID_H, MID_W,
+                                             num_layers=6, max_disp=MID_LABELS - 2)
+    cases = [("N1 (A's pair and configuration)", (a_left, a_right), a_gt, a_cfg, "K1"),
+             ("N2 (K's pair and configuration)", (k_left, k_right), k_gt,
+              fullres_config(k_left.astype(np.float32)), "K1w"),
+             ("N3 (L's pair and configuration)", (l_left, l_right), l_gt,
+              wide_disparity_config(l_left.astype(np.float32), MID_LABELS), "K1x")]
+    return [(tag, pair, gt, replace(cfg, compute_dtype="bf16", fused_update=True), kernel)
+            for tag, pair, gt, cfg, kernel in cases]
+
+
+def stage_split_argv(cfg, pair_path: str, reps: int) -> list[str]:
+    """The `profile_stages` flags of `cfg` on the pair saved at `pair_path`."""
+    argv = ["--pair", pair_path, "--labels", str(cfg.num_disp),
+            "--max-vertices", str(cfg.max_vertices), "--sort-mode", cfg.sort_mode,
+            "--compute-dtype", cfg.compute_dtype, "--fused-update", "1", "--reps", str(reps)]
+    if cfg.tile_px:
+        argv += ["--tiled", "2" if cfg.tile_bf16 else "1", "--tile-px", str(cfg.tile_px),
+                 "--tile-u", str(cfg.tile_u)]
+    return argv
+
+
+def steady_ms(step_ms: list) -> float:
+    """The median step time after the first N_WARM_STEPS of a phase."""
+    return statistics.median(step_ms[N_WARM_STEPS:])
+
+
+def run_tools() -> dict:
+    """N: the four entry points of `depth_estimation_torch.tools`, called
+    in-process as a user calls them from the command line, on the card:
+    the per-stage profiler on A's, K's and L's pairs in their phases'
+    configurations with the fused update (K1, K1w and K1x), the tiled
+    stereo's one-rank timing at 994x1482, L = 64, and the two scaled
+    detection runs. Each runs with the launch counts set to 0 just before
+    it and read just after."""
+    import tempfile
+
+    from depth_estimation_torch.models.pipeline import crf_stereo_infer
+    from depth_estimation_torch.tools import (profile_stages, tiled_stereo_study,
+                                              train_coco_scaled, train_detect_scaled)
+    from depth_estimation_torch.train.metrics import epe
+
+    TOOLS_OUT.mkdir(exist_ok=True)
+    log(f"N: the tools' entry points on {card_line()}")
+    out = {}
+    for tag, pair, gt, cfg, kernel in stage_split_cases():
+        left, right, gt = (x.astype(np.float32) for x in (*pair, gt))
+        g = torch.as_tensor(gt, device=DEV)
+        direct = crf_stereo_infer(left, right, cfg, device=DEV)["disparity"]
+        epe_direct = float(epe(direct, g, (g > 0).float()))
+        del direct, g
+        reps = N1_REPS if kernel == "K1" else N_WIDE_REPS
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/pair.npz"
+            np.savez(path, left=left, right=right, disparity=gt)
+            argv = stage_split_argv(cfg, path, reps)
+            zero_launches()
+            t0 = time.perf_counter()
+            res = profile_stages.main(
+                argv + ["--out", str(TOOLS_OUT / f"profile_stages_{tag[:2]}.json")])
+            wall = time.perf_counter() - t0
+        shown = " ".join(a for a in argv if a != path)
+        out[tag[:2]] = check_stage_split(f"{tag} profile_stages {shown}", res, kernel, cfg,
+                                         epe_direct)
+        out[tag[:2]]["wall_s"] = wall
+        log(f"{tag[:2]}: {wall:.1f} s in all")
+    log("N2, N3: phase K's and L's profiles above put the untiled splat's products and "
+        f"index_add_ first, then the blur; the stage split orders N2 {out['N2']['order']}, "
+        f"N3 {out['N3']['order']}")
+
+    zero_launches()
+    res = tiled_stereo_study.main(["--mode", "time", "--halo", "16", "--reps", "4",
+                                   "--out", str(TOOLS_OUT / "tiled_stereo_N4.json")])
+    check(all(v == 0 for v in launches().values()), f"N4 launched {launches()}")
+    log(f"N4 tiled_stereo_study --mode time ({res['unit']}, {res['backend']}): untiled "
+        f"{res['untiled_ms']:.3f} ms, tiled on one rank {res['tiled_1chip_ms']:.3f} ms, "
+        f"overhead {res['overhead_pct']:.2f}%")
+    log(f"N4: two untiled runs differ by up to {res['untiled_repeat_max_abs_disp_delta']:.3g} px "
+        "(index_add_'s order); in deterministic mode the one-tile map against the untiled one: "
+        "halo 0 max "
+        f"{res['one_tile_halo0_max_abs_disp_delta']:.3g} px; halo 16 (zero rows padded at the "
+        f"frame's edges) max {res['one_tile_max_abs_disp_delta']:.3g} px, mean "
+        f"{res['one_tile_mean_abs_disp_delta']:.3g} px, {res['one_tile_rows_over_5e-3px']} rows "
+        "over 5e-3 px")
+    ulp_max = res["cpu_one_ulp_max_abs_disp_delta"]
+    log(f"N4: the one-tile map at halo 16 against the same call on the CPU: max "
+        f"{res['one_tile_cpu_max_abs_disp_delta']:.3g} px, mean "
+        f"{res['one_tile_cpu_mean_abs_disp_delta']:.3g} px; one rounding of the left image "
+        f"moves the CPU's map by up to {ulp_max:.3g} px, mean "
+        f"{res['cpu_one_ulp_mean_abs_disp_delta']:.3g} px")
+    check(res["one_tile_halo0_max_abs_disp_delta"] <= DISP_ATOL,
+          "N4: the one-tile map at halo 0 is off the untiled one")
+    check(res["one_tile_cpu_mean_abs_disp_delta"] <= F32_MEAN_TOL,
+          f"N4: the one-tile map at halo 16 is over {F32_MEAN_TOL} px (mean) off the CPU's")
+    check(res["one_tile_cpu_max_abs_disp_delta"] <= DISP_ATOL + ulp_max,
+          f"N4: the one-tile map at halo 16 is off the CPU's by more than {DISP_ATOL} px plus "
+          "what one rounding of the input moves the CPU's map")
+    out["N4"] = res
+
+    zero_launches()
+    res = train_detect_scaled.main(["--steps", str(N5_STEPS),
+                                    "--out", str(TOOLS_OUT / "detect_scaled_N5.json")])
+    check(all(v == 0 for v in launches().values()), f"N5 launched {launches()}")
+    check(res["losses_finite"], "N5: a non-finite loss")
+    check(res["heads_phase_body_unchanged"] is True, "N5: the heads phase moved the grafted body")
+    check(res["params_unmoved_last_phase"] == [],
+          f"N5: unmoved in the all-layers phase: {res['params_unmoved_last_phase']}")
+    steady = {k: steady_ms(v) for k, v in res["step_ms"].items()}
+    log(f"N5 train_detect_scaled --steps {N5_STEPS}: step ms (host clock, each step ending on "
+        f"its loss) heads {res['step_ms']['heads']}, all layers {res['step_ms']['all']}; median "
+        f"after the first {N_WARM_STEPS} of a phase: heads {steady['heads']:.3f}, all layers "
+        f"{steady['all']:.3f}; held-out mAP@0.5 {res['heldout_map50']:.4f}, mask IoU "
+        f"{res['heldout_mask_iou']:.4f} (not gated); wall {res['wall_s']:.1f} s")
+    out["N5"] = {k: res[k] for k in ("step_ms", "heldout_map50", "heldout_mask_iou",
+                                     "loss_first", "loss_last", "wall_s")}
+    out["N5"]["steady_step_ms"] = steady
+
+    zero_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = train_coco_scaled.main(["--steps", str(N6_STEPS), "--items", str(N6_ITEMS),
+                                      "--holdout", str(N6_HOLDOUT), "--data-dir", tmp,
+                                      "--out", str(TOOLS_OUT / "coco_scaled_N6.json")])
+    check(all(v == 0 for v in launches().values()), f"N6 launched {launches()}")
+    check(res["items_read"] == N6_ITEMS, f"N6: {res['items_read']} items read back")
+    check(res["losses_finite"], "N6: a non-finite loss")
+    steady = steady_ms(res["step_ms"])
+    log(f"N6 train_coco_scaled --steps {N6_STEPS} --items {N6_ITEMS}: {res['items_read']} items "
+        f"read back, step ms {res['step_ms']} (host clock); median after the first "
+        f"{N_WARM_STEPS}: {steady:.3f}; wall {res['wall_s']:.1f} s")
+    out["N6"] = {k: res[k] for k in ("items_read", "step_ms", "loss_first", "loss_last",
+                                     "wall_s")}
+    out["N6"]["steady_step_ms"] = steady
+    log(card_line())
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2061,6 +2290,8 @@ def main() -> int:
     k = run_fullres()
     wd = run_wide_disparity()
     m = run_route_check()
+    tools = run_tools()
+    log(json.dumps({"tools": {"N": tools}}))
     log(json.dumps({"pipelines": {"A": a, "B": b, "E": e, "K": k, "L": wd, "M": m}}))
     log(json.dumps({"training": {"C": c, "D": d}}))
     log(json.dumps({"serving": {"F": f}, "world": {"G": g}, "operators": {"H": h}}))
@@ -2088,6 +2319,7 @@ def main() -> int:
         "us": t_bf16["ms"] * 1e3, "bound_us": t_bf16["bound_ms"] * 1e3,
         "shape": [n, LABELS], "dtype": "bf16", "launches_b": b["launches"],
         "launches_f": f["launches"], "launches_k": k["launches_k1"],
+        "launches_n1": tools["N1"]["launches"],
         "max_abs_err_f32": errs[n, LABELS, torch.float32],
         "f32": t_f32, **t_wide, f"n{n_mid}_L64": t_mid64, "yardsticks": yardsticks,
         "design": "a warp per tile of rows, coalesced 16-byte loads, Mu in registers",
@@ -2101,7 +2333,7 @@ def main() -> int:
         **w_full["bf16"], "library_ms": None,
         "us": w_full["bf16"]["ms"] * 1e3, "bound_us": w_full["bf16"]["bound_ms"] * 1e3,
         "shape": [n_full, FULL_LABELS], "dtype": "bf16",
-        "launches_crop_f32": k["crop_launches_k1w"],
+        "launches_crop_f32": k["crop_launches_k1w"], "launches_n2": tools["N2"]["launches"],
         "max_abs_err_f32": errs[n_full, FULL_LABELS, torch.float32],
         "f32": w_full["f32"], f"n{n}_L{FULL_LABELS}": w_flagship,
         "max_abs_err_by_L": {f"L{L}_{str(dt)[6:]}": max(errs[n, L, dt], errs[n - 7, L, dt])
@@ -2128,7 +2360,7 @@ def main() -> int:
         **x_mid["bf16"], "library_ms": None,
         "us": x_mid["bf16"]["ms"] * 1e3, "bound_us": x_mid["bf16"]["bound_ms"] * 1e3,
         "shape": [n_mid, MID_LABELS], "dtype": "bf16",
-        "launches_crop_f32": wd["crop_launches_k1x"],
+        "launches_crop_f32": wd["crop_launches_k1x"], "launches_n3": tools["N3"]["launches"],
         "max_abs_err_f32": errs[n_mid, MID_LABELS, torch.float32], "f32": x_mid["f32"],
         "max_abs_err_by_L": {f"L{L}_{str(dt)[6:]}": max(errs[n, L, dt], errs[n - 7, L, dt])
                              for L in XWIDE_CHECK_L + (K.XWIDE_MAX_L,)

@@ -64,7 +64,8 @@ kernel's launches (`fused_energy_update.launches` for K1,
 `fused_energy_update_wide.launches` for K1w,
 `fused_energy_update_xwide.launches` for K1x,
 `fused_energy_update_xxwide.launches` for K1xx,
-`fused_energy_update_wide_ffma.launches` for K1w_ffma).
+`fused_energy_update_wide_ffma.launches` for K1w_ffma); `launch_counts`
+reads them all by kernel name and `zero_launch_counts` sets them to 0.
 """
 from __future__ import annotations
 
@@ -74,7 +75,8 @@ from dataclasses import dataclass
 import torch
 
 __all__ = ["fused_energy_update", "fused_energy_update_wide", "fused_energy_update_xwide",
-           "fused_energy_update_xxwide", "fused_energy_update_wide_ffma",
+           "fused_energy_update_xxwide", "fused_energy_update_wide_ffma", "KERNELS",
+           "launch_counts", "zero_launch_counts",
            "fused_energy_update_reference", "kernel_for", "launch_geometry", "wide_geometry",
            "xwide_geometry", "xxwide_geometry", "wide_ffma_geometry", "wide_config",
            "xwide_smem_bytes", "xwide_stage_labels", "xwide_pass_cols", "xxwide_smem_bytes",
@@ -522,3 +524,19 @@ fused_energy_update_wide.launches = 0  # K1w's launches
 fused_energy_update_xwide.launches = 0  # K1x's launches
 fused_energy_update_xxwide.launches = 0  # K1xx's launches
 fused_energy_update_wide_ffma.launches = 0  # K1w_ffma's launches
+
+# the wrappers by kernel name
+KERNELS = {"K1": fused_energy_update, "K1w": fused_energy_update_wide,
+           "K1x": fused_energy_update_xwide, "K1xx": fused_energy_update_xxwide,
+           "K1w_ffma": fused_energy_update_wide_ffma}
+
+
+def launch_counts() -> dict[str, int]:
+    """Each kernel's launches so far, by kernel name."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def zero_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -29,15 +29,12 @@ def _check(arrays, dtype):
     """One launch of the kernel that `kernel_for(L)` names, counted once on
     its own counter, against the plain version on the same inputs."""
     arrays = [torch.from_numpy(a).to("cuda", dtype) for a in arrays]
-    counters = {"K1": T.fused_energy_update, "K1w": T.fused_energy_update_wide,
-                "K1x": T.fused_energy_update_xwide, "K1xx": T.fused_energy_update_xxwide,
-                "K1w_ffma": T.fused_energy_update_wide_ffma}
-    before = {k: f.launches for k, f in counters.items()}
+    before = T.launch_counts()
     E_k, C_k = T.fused_energy_update(*arrays)
     torch.cuda.synchronize()
     want = T.kernel_for(arrays[0].shape[1])
-    assert {k: f.launches - before[k] for k, f in counters.items()} == {
-        k: int(k == want) for k in counters}
+    assert {k: n - before[k] for k, n in T.launch_counts().items()} == {
+        k: int(k == want) for k in T.KERNELS}
     E_r, C_r = T.fused_energy_update_reference(*arrays)
     if dtype == torch.float32:
         torch.testing.assert_close(E_k, E_r, rtol=1e-5, atol=1e-5)

@@ -5,6 +5,7 @@ update's wrappers take their plain version only for CPU tensors."""
 import ast
 import importlib
 import pathlib
+import runpy
 import shutil
 import subprocess
 import sys
@@ -23,6 +24,8 @@ from depth_estimation_torch.ops.spectral import spectral_segment
 from depth_estimation_torch.parallel.mesh import make_mesh
 from depth_estimation_torch.parallel.stereo_tiled import crf_stereo_infer_tiled
 from depth_estimation_torch.ops.cuda import meanfield as K
+from depth_estimation_torch.tools import (profile_stages, tiled_stereo_study, train_coco_scaled,
+                                          train_detect_scaled)
 from depth_estimation_torch.train import experiments as TE
 from depth_estimation_torch.train.trainer import Trainer
 from depth_estimation_torch.utils import build
@@ -54,7 +57,10 @@ SLICE_MODULES = [f"depth_estimation_torch.{m}" for m in (
     "data.shapes", "data.coco", "data.loader", "train.eval_detection", "utils.visualize",
     "utils.weights", "apps.detect", "apps.train_detect",
     "ops.cuda.meanfield", "ops.boxfilter", "ops.costvolume", "data.datasets", "utils.native",
-    "utils.build")]
+    "utils.build", "tools.profile_stages", "tools.tiled_stereo_study",
+    "tools.train_detect_scaled", "tools.train_coco_scaled")]
+# the entry points of the port's tools subpackage, each a JAX system tool's
+TOOLS = ("profile_stages", "tiled_stereo_study", "train_detect_scaled", "train_coco_scaled")
 
 
 def test_every_module_imports_without_jax():
@@ -63,8 +69,8 @@ def test_every_module_imports_without_jax():
             "sys.modules['jax'] = None\n"
             f"for m in {_modules()!r}:\n"
             "    importlib.import_module(m)\n"
-            "assert not any(k.startswith(('jax', 'depth_estimation_tpu')) for k in sys.modules"
-            " if sys.modules[k] is not None)\n"
+            "assert not any(k.startswith(('jax', 'depth_estimation_tpu')) or k.split('.')[0] == "
+            "'tools' for k in sys.modules if sys.modules[k] is not None)\n"
             "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
@@ -81,6 +87,48 @@ def test_no_file_names_the_jax_package():
         text = p.read_text()
         assert "depth_estimation_tpu" not in text, p
         assert "import jax" not in text and "from jax" not in text, p
+
+
+def test_tools_import_nothing_of_the_jax_system():
+    """The tools' modules import only the port (relatively), the standard
+    library, torch, numpy and PIL: no JAX, no JAX package, nothing of the
+    JAX system's `tools/`, and no module loaded by path."""
+    allowed = {"argparse", "dataclasses", "functools", "json", "os", "socket", "statistics",
+               "tempfile", "time", "typing", "__future__", "numpy", "torch", "PIL"}
+    for name in TOOLS:
+        path = PKG / "tools" / f"{name}.py"
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                roots = set() if node.level else {node.module.split(".")[0]}
+            else:
+                continue
+            assert roots <= allowed, (name, roots)
+        assert "spec_from_file_location" not in path.read_text() and "sys.path" not in path.read_text()
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_tools_names_resolve_and_run_as_modules(name, monkeypatch, capsys):
+    """Each tool is named in the subpackage's docstring beside the JAX
+    system's script it ports (which exists), every name it exports
+    resolves, and it runs as `__main__` (`--help`)."""
+    tools = importlib.import_module("depth_estimation_torch.tools")
+    mod = importlib.import_module(f"depth_estimation_torch.tools.{name}")
+    assert f"`{name}`" in tools.__doc__ and f"`tools/{name}.py`" in tools.__doc__
+    assert (REPO / "tools" / f"{name}.py").is_file()
+    assert callable(mod.main) and "main" in mod.__all__
+    for export in mod.__all__:
+        assert getattr(mod, export) is not None, (name, export)
+    # `python -m` runs the module through runpy as `__main__`
+    monkeypatch.setattr(sys, "argv", [name, "--help"])
+    monkeypatch.delitem(sys.modules, f"depth_estimation_torch.tools.{name}")
+    with pytest.raises(SystemExit) as done:
+        runpy.run_module(f"depth_estimation_torch.tools.{name}", run_name="__main__")
+    assert done.value.code == 0
+    out = capsys.readouterr().out
+    assert "--device" in out and "--out" in out
 
 
 # JAX re-exports that the port spells differently (the subpackage's
@@ -179,6 +227,10 @@ def test_entry_points_default_to_the_gpu(tmp_path):
         lambda: TE.train_detection_shapes_batched(num_steps=1),
         lambda: detect.main(["--image", str(tmp_path / "l.png")]),
         lambda: train_detect.main(["--steps", "1"]),
+        lambda: profile_stages.main(["--h", "32", "--w", "48", "--labels", "4"]),
+        lambda: tiled_stereo_study.main(["--mode", "time", "--small"]),
+        lambda: train_detect_scaled.main(["--steps", "1"]),
+        lambda: train_coco_scaled.main(["--steps", "1", "--data-dir", str(tmp_path)]),
     ]
     for call in no_gpu:
         with pytest.raises(RuntimeError, match="no CUDA device"):
