@@ -7,8 +7,8 @@ Drives the port's flagship stereo inference, `crf_stereo_infer` on a
 288×384 pair with 16 labels, a 5-D bilateral guide and 5 mean-field
 iterations, through both lattice plan paths, then its training path, its
 serving, multi-device, operator and detection paths, fullres128, a
-wide-disparity frame, the route above 1024 labels and the tools' entry
-points:
+wide-disparity frame, the route above 1024 labels, the tools' entry
+points and the benchmark programs:
 
   A. the bench configuration: calibrated capacity, 32-px tiles with bf16
      incidence blocks, bf16 mean-field state and the fused update, on a
@@ -123,6 +123,21 @@ points:
      all-layers phase; the median step after each phase's first 16) and
      `train_coco_scaled --steps 48 --items 8` (the tree reads back as 8
      items, finite losses). Their JSON lines go to chiprun_out/.
+  O. the benchmark programs, each the counterpart of a JAX system's
+     program: `bench_torch.py --reps 10` in a process of its own, on its
+     defaults and on A's pair (`--pair`, with `--dense-baseline`), whose
+     calibration must be A's: `bench.py`'s keys, the card's name, a
+     roofline fraction in (0, 1], K1 5 times a pipeline call, no vertex
+     dropped; the five configurations of `tools.bench_suite` at full size
+     (the JAX suite's keys; K1 5 times a call in middlebury64, K1w 5 in
+     fullres128, K1 40 a batch in serving_batched, none in tsukuba_dense
+     and trainable_step; no vertex dropped): tsukuba_dense's float32 map
+     (TF32 off) against the same pipeline in float64 within 5e-3 px plus
+     what one float32 rounding of the left image moves it, middlebury64's
+     bf16 map against K1's plain version in its place within 0.1 px mean
+     (deterministic mode), fullres128's pipeline within 10% of K's warm
+     run; and `tools.bench_scaling` on the card present (size 1 on one
+     card, its note saying so). Their JSON lines go beside N's.
 
 It builds the CUDA kernels from `depth_estimation_torch/csrc` and the C++
 CPU lattice (one compiler per source, all at once), prints what `ptxas`
@@ -141,7 +156,9 @@ K1x and at (393216, 1536) beside K1xx; K1xx also at phase L's shape),
 counts the kernels' launches in
 every phase (A, B, E and F launch K1 5 times a frame, K launches K1w 5
 times, L K1x 5 times, M K1xx 5 times, N's three stage splits K1, K1w and
-K1x 5 times a pipeline call, the others launch none of them),
+K1x 5 times a pipeline call, O's bench and middlebury64 K1 5 times a
+call, its fullres128 K1w 5 times, its serving_batched K1 40 times a batch,
+the others launch none of them),
 and checks each
 pipeline's disparity against the same pipeline without the kernel on the
 card and against the port's own CPU run (the path the CPU tests hold
@@ -222,10 +239,10 @@ J_MODEL = dict(num_classes=4, blocks=(2, 2, 2, 2), fpn_dim=128, num_proposals=32
                num_detections=8, score_thresh=-1.0)
 # K: the repo's largest configuration, fullres128 (tools/bench_suite.py:
 # 1088×1920, 128 labels, 5 iterations, the 6-layer synthetic pair it takes
-# without a Middlebury pair), calibrated as the bench calibrates it; its
-# 192×256 crop against the port's CPU run in float32
+# without a Middlebury pair), calibrated as the suite calibrates it
+# (`tools.bench_suite.lattice_cfg`); its 192×256 crop against the port's CPU
+# run in float32
 FULL_H, FULL_W, FULL_LABELS, FULL_MAX_DISP = 1088, 1920, 128, 96
-FULL_INCIDENCE_BYTES = 4 << 30  # the bench's budget for the f32-denominated tables
 CROP_H, CROP_W = 192, 256
 # the label counts at which K1w is held against its plain version, and the
 # edges of its padded widths (32, 64, 128, 256) and of its limit; K1x's
@@ -261,6 +278,31 @@ ROUTE_H, ROUTE_W, ROUTE_LABELS = 160, 1280, 1100
 N1_REPS, N_WIDE_REPS = 10, 5
 N5_STEPS, N6_STEPS, N6_ITEMS, N6_HOLDOUT, N_WARM_STEPS = 96, 48, 8, 2, 16
 TOOLS_OUT = Path(__file__).resolve().parent / "chiprun_out"
+ROOT = TOOLS_OUT.parent
+# O: the benchmark programs. The keys of the JAX programs' lines
+# (bench.py:381-407, tools/bench_suite.py:215-365, tools/bench_scaling.py:
+# 104-117), which tests/test_torch_bench*.py read from their sources; the
+# suite's fused-update launches a call (a call of serving_batched is a batch
+# of 8), absent kernels none; the bench's reps
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "detail")
+BENCH_DETAIL_KEYS = ("pipeline_ms", "iter_ms", "roofline_fraction", "device", "niters",
+                     "max_vertices", "max_pieces", "order_by_sum", "tile_px", "tile_u",
+                     "sort_mode", "unroll", "vs_baseline_source")
+FRAME_KEYS = ("config", "metric", "value", "unit", "pipeline_ms", "source", "max_vertices",
+              "device")
+SUITE_KEYS = {
+    "tsukuba_dense": ("config", "metric", "value", "unit", "h", "w", "labels", "niters", "device"),
+    "middlebury64": FRAME_KEYS,
+    "trainable_step": ("config", "metric", "value", "unit", "device"),
+    "fullres128": FRAME_KEYS,
+    "serving_batched": ("config", "metric", "value", "unit", "loop_fps", "vmap_fps", "device")}
+SCALING_KEYS = ("metric", "unit", "device", "frames_per_s", "efficiency_vs_linear", "note")
+SUITE_LAUNCHES = {"tsukuba_dense": {}, "middlebury64": {"K1": NITERS}, "trainable_step": {},
+                  "fullres128": {"K1w": NITERS}, "serving_batched": {"K1": SERVE_BATCH * NITERS}}
+BENCH_REPS, SUITE_REPS = 10, 5
+# O: fullres128's pipeline in the suite against K's warm run in the same
+# call, as a fraction (both ~95% busy; K moved by <= 3.1% between calls)
+FULLRES_REL_TOL = 0.10
 
 
 def log(msg: str) -> None:
@@ -670,28 +712,13 @@ def trainable_inputs(left, right, gt, device: str) -> dict:
     return t
 
 
-def trainable_plan(left: torch.Tensor) -> dict:
-    """C's plan options, calibrated on the guide at the initial scales as
-    the JAX package's `trainable_step` does."""
-    from depth_estimation_torch.crf.guides import ijrgb_guide, ijrgb_guide_init
-    from depth_estimation_torch.models.pipeline import blocked
-    from depth_estimation_torch.ops.permutohedral import (suggest_capacity, suggest_sort_mode,
-                                                          suggest_tile_u)
-
-    g0 = ijrgb_guide(ijrgb_guide_init(device=left.device), left).detach()
-    ref0 = g0.reshape(-1, g0.shape[-1])
-    cap = suggest_capacity(ref0, headroom=8.0)
-    return dict(max_vertices=cap, tile_px=TILE_PX, tile_bf16=True,
-                sort_mode=suggest_sort_mode(ref0),
-                tile_u=suggest_tile_u(blocked(g0, TILE_PX), TILE_PX * TILE_PX, cap, headroom=2.0))
-
-
 def trainable_loss(model, t: dict, kw: dict):
-    from depth_estimation_torch.ops.costvolume import expected_disparity
-    from depth_estimation_torch.train.metrics import masked_mse
+    """C's loss on t's tensors: the training configuration's loss
+    (`tools.bench_suite.trainable_loss`) against t's ground truth where it
+    is known."""
+    from depth_estimation_torch.tools.bench_suite import trainable_loss as loss
 
-    logits = model(t["left"], t["logits"], niters=NITERS, **kw)
-    return masked_mse(expected_disparity(logits), t["gt"], (t["gt"] > 0).float())
+    return loss(model, t["left"], t["logits"], t["gt"], (t["gt"] > 0).float(), NITERS, kw)
 
 
 def first_step(t: dict, kw: dict):
@@ -707,6 +734,7 @@ def first_step(t: dict, kw: dict):
 def run_trainable_step() -> dict:
     """C: calibrate, hold the first step against the CPU, time and profile."""
     from depth_estimation_torch.models.refiner import CRFasRNN
+    from depth_estimation_torch.tools.bench_suite import trainable_plan
 
     left, right, gt = synthetic_pair(0.5)
     t = trainable_inputs(left, right, gt, DEV)
@@ -988,6 +1016,7 @@ def dp_batch(device: str):
     truth) and C's plan options with float32 incidence blocks, calibrated
     on the first pair."""
     from depth_estimation_torch.models.pipeline import CRFStereoConfig, stereo_unary
+    from depth_estimation_torch.tools.bench_suite import trainable_plan
 
     lefts, rights, gts = (torch.as_tensor(a, device=device) for a in synthetic_batch(DP_PAIRS, 0.5))
     logits = torch.stack([-stereo_unary(lefts[i], rights[i], CRFStereoConfig(num_disp=LABELS))
@@ -1516,18 +1545,6 @@ def check_native() -> float:
     return err
 
 
-def fullres_config(left, tiled: bool = True):
-    """fullres128's config for `left`, calibrated as the bench calibrates it
-    (capacity at headroom 3, 32-px tiles within the incidence budget, bf16
-    incidence blocks where tiled)."""
-    from depth_estimation_torch.models.pipeline import CRFStereoConfig, calibrate_capacity
-
-    cfg = calibrate_capacity(left, CRFStereoConfig(num_disp=FULL_LABELS, niters=NITERS),
-                             headroom=3.0, tiled=tiled, max_incidence_bytes=FULL_INCIDENCE_BYTES,
-                             device=DEV)
-    return replace(cfg, tile_bf16=cfg.tile_px is not None)
-
-
 def plain_split_k(E0, S, C, Mu):
     """The plain version with Q'·Mu summed over the two halves of l apart
     (another order of the same f32 sums)."""
@@ -1556,6 +1573,7 @@ def run_fullres() -> dict:
     from depth_estimation_torch.models.pipeline import crf_stereo_infer
     from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
                                                            fused_energy_update_reference)
+    from depth_estimation_torch.tools.bench_suite import lattice_cfg
     from depth_estimation_torch.train.metrics import bad_pixel_ratio, epe
 
     tag = f"K (fullres128, {FULL_H}x{FULL_W}, L={FULL_LABELS}, bf16, fused)"
@@ -1563,9 +1581,8 @@ def run_fullres() -> dict:
                                        max_disp=FULL_MAX_DISP)
     left, right, gt = left.astype(np.float32), right.astype(np.float32), gt.astype(np.float32)
     t0 = time.perf_counter()
-    cfg = fullres_config(left)
+    cfg = lattice_cfg(FULL_LABELS, left, DEV)
     calib_s = time.perf_counter() - t0
-    cfg = replace(cfg, compute_dtype="bf16", fused_update=True)
     tiled = cfg.tile_px is not None
     log(f"{tag}: calibrated in {calib_s:.2f} s: tiled={tiled} tile_px={cfg.tile_px} "
         f"tile_u={cfg.tile_u} max_vertices={cfg.max_vertices} sort_mode={cfg.sort_mode} "
@@ -1656,7 +1673,7 @@ def run_fullres() -> dict:
 
     # the crop, in float32 (state and incidence blocks), against the CPU
     lc, rc = left[:CROP_H, :CROP_W], right[:CROP_H, :CROP_W]
-    ccfg = replace(fullres_config(lc), tile_bf16=False, fused_update=True)
+    ccfg = replace(lattice_cfg(FULL_LABELS, lc, DEV), tile_bf16=False, compute_dtype="f32")
     zero_launches()
     crop_card = crf_stereo_infer(lc, rc, ccfg, device=DEV)["disparity"]
     torch.cuda.synchronize()
@@ -1684,18 +1701,6 @@ def run_fullres() -> dict:
             "crop_launches_k1w": crop_k1w}
 
 
-def wide_disparity_config(left, labels: int, tiled: bool = True):
-    """Phase L's config for `left`, calibrated as the bench calibrates
-    fullres128 (capacity at headroom 3, 32-px tiles within the incidence
-    budget, bf16 incidence blocks where tiled)."""
-    from depth_estimation_torch.models.pipeline import CRFStereoConfig, calibrate_capacity
-
-    cfg = calibrate_capacity(left, CRFStereoConfig(num_disp=labels, niters=NITERS),
-                             headroom=3.0, tiled=tiled, max_incidence_bytes=FULL_INCIDENCE_BYTES,
-                             device=DEV)
-    return replace(cfg, tile_bf16=cfg.tile_px is not None)
-
-
 def run_wide_disparity() -> dict:
     """L: a half-size Middlebury frame at 320 labels with bf16 state and the
     fused update: 5 launches of K1x and none of the other kernels, a finite
@@ -1709,15 +1714,15 @@ def run_wide_disparity() -> dict:
     from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
                                                            fused_energy_update_reference,
                                                            fused_energy_update_wide_ffma)
+    from depth_estimation_torch.tools.bench_suite import lattice_cfg
 
     tag = f"L (wide disparity, {MID_H}x{MID_W}, L={MID_LABELS}, bf16, fused)"
     left, right, gt = make_stereo_pair(np.random.RandomState(0), MID_H, MID_W, num_layers=6,
                                        max_disp=MID_LABELS - 2)
     left, right = left.astype(np.float32), right.astype(np.float32)
     t0 = time.perf_counter()
-    cfg = wide_disparity_config(left, MID_LABELS)
+    cfg = lattice_cfg(MID_LABELS, left, DEV)
     calib_s = time.perf_counter() - t0
-    cfg = replace(cfg, compute_dtype="bf16", fused_update=True)
     tiled = cfg.tile_px is not None
     log(f"{tag}: calibrated in {calib_s:.2f} s: tiled={tiled} tile_px={cfg.tile_px} "
         f"tile_u={cfg.tile_u} max_vertices={cfg.max_vertices} sort_mode={cfg.sort_mode} "
@@ -1775,7 +1780,7 @@ def run_wide_disparity() -> dict:
 
     # the crop, wider than L, in float32 (state and incidence blocks), against the CPU
     lc, rc = left[:MID_CROP_H, :MID_CROP_W], right[:MID_CROP_H, :MID_CROP_W]
-    ccfg = replace(wide_disparity_config(lc, MID_LABELS), tile_bf16=False, fused_update=True)
+    ccfg = replace(lattice_cfg(MID_LABELS, lc, DEV), tile_bf16=False, compute_dtype="f32")
     zero_launches()
     crop_card = crf_stereo_infer(lc, rc, ccfg, device=DEV)["disparity"]
     torch.cuda.synchronize()
@@ -1888,6 +1893,7 @@ def run_route_check() -> dict:
     from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
                                                            fused_energy_update_reference,
                                                            fused_energy_update_wide_ffma)
+    from depth_estimation_torch.tools.bench_suite import lattice_cfg
 
     tag = (f"M (K1xx's route, {ROUTE_H}x{ROUTE_W}, L={ROUTE_LABELS}, bf16, fused; a check of "
            "the route, not a user's configuration)")
@@ -1895,9 +1901,8 @@ def run_route_check() -> dict:
                                       max_disp=ROUTE_LABELS - 2)
     left, right = left.astype(np.float32), right.astype(np.float32)
     t0 = time.perf_counter()
-    cfg = wide_disparity_config(left, ROUTE_LABELS)
+    cfg = lattice_cfg(ROUTE_LABELS, left, DEV)
     calib_s = time.perf_counter() - t0
-    cfg = replace(cfg, compute_dtype="bf16", fused_update=True)
     log(f"{tag}: calibrated in {calib_s:.2f} s: tiled={cfg.tile_px is not None} tile_px="
         f"{cfg.tile_px} tile_u={cfg.tile_u} max_vertices={cfg.max_vertices} sort_mode="
         f"{cfg.sort_mode} tile_bf16={cfg.tile_bf16}")
@@ -2035,6 +2040,7 @@ def stage_split_cases() -> list:
     state with the fused update."""
     from depth_estimation_torch.data.synthetic import make_stereo_pair
     from depth_estimation_torch.models.pipeline import CRFStereoConfig, calibrate_capacity
+    from depth_estimation_torch.tools.bench_suite import lattice_cfg
 
     a_left, a_right, a_gt = synthetic_pair(0.5)
     a_cfg = calibrate_capacity(a_left, CRFStereoConfig(num_disp=LABELS, niters=NITERS),
@@ -2046,9 +2052,9 @@ def stage_split_cases() -> list:
                                              num_layers=6, max_disp=MID_LABELS - 2)
     cases = [("N1 (A's pair and configuration)", (a_left, a_right), a_gt, a_cfg, "K1"),
              ("N2 (K's pair and configuration)", (k_left, k_right), k_gt,
-              fullres_config(k_left.astype(np.float32)), "K1w"),
+              lattice_cfg(FULL_LABELS, k_left.astype(np.float32), DEV), "K1w"),
              ("N3 (L's pair and configuration)", (l_left, l_right), l_gt,
-              wide_disparity_config(l_left.astype(np.float32), MID_LABELS), "K1x")]
+              lattice_cfg(MID_LABELS, l_left.astype(np.float32), DEV), "K1x")]
     return [(tag, pair, gt, replace(cfg, compute_dtype="bf16", fused_update=True), kernel)
             for tag, pair, gt, cfg, kernel in cases]
 
@@ -2178,6 +2184,199 @@ def run_tools() -> dict:
     return out
 
 
+def run_bench_line(tag: str, argv: list[str]) -> dict:
+    """`bench_torch.py` in a process of its own, as a user runs it: its
+    line with `bench.py`'s keys, the card's name, a roofline fraction in
+    (0, 1], K1 5 times a pipeline call and no other kernel, no vertex
+    dropped (its standard error's record)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(ROOT / "bench_torch.py"), *argv], cwd=ROOT,
+                         capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"{tag}: bench_torch.py exited {res.returncode}:\n"
+          + res.stderr[-3000:])
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    info = json.loads(next(x for x in res.stderr.splitlines() if x.startswith("{")))
+    d = line["detail"]
+    log(f"{tag} bench_torch.py {' '.join(argv)} ({wall:.1f} s): {json.dumps(line)}")
+    log(f"{tag}: {json.dumps(info)}")
+    check(tuple(line) == BENCH_KEYS and tuple(d) == BENCH_DETAIL_KEYS, f"{tag}: keys {line}")
+    check(d["device"] == torch.cuda.get_device_name(0), f"{tag}: device {d['device']}")
+    check(d["roofline_fraction"] is not None and 0 < d["roofline_fraction"] <= 1.0,
+          f"{tag}: roofline fraction {d['roofline_fraction']}")
+    per_call = info["launches_per_call"]
+    check(per_call == {k: NITERS if k == "K1" else 0 for k in per_call},
+          f"{tag}: launches a pipeline call {per_call}")
+    check(info["num_valid"] <= d["max_vertices"] and not info["tile_overflow"],
+          f"{tag}: {info['num_valid']} vertices for {d['max_vertices']}, "
+          f"{info['tile_overflow']} tile entries dropped")
+    return {"line": line, **info, "wall_s": wall}
+
+
+def check_dense_oracle(line: dict) -> dict:
+    """tsukuba_dense's pair through the dense oracle on the card in
+    float32 (TF32 off) against the same pipeline in float64 (the images
+    taken as float64, so that every stage before the decode runs in it),
+    within DISP_ATOL plus what one float32 rounding of the left image moves
+    the float32 map (printed beside); one float32 run profiled."""
+    from depth_estimation_torch.models import pipeline as P
+    from depth_estimation_torch.tools.bench_suite import flagship_pair
+
+    left, right = flagship_pair(False, DEV)
+    check((line["h"], line["w"]) == tuple(left.shape[:2]), f"dense pair {tuple(left.shape)}")
+    cfg = P.CRFStereoConfig(num_disp=16, niters=NITERS, backend="dense")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+
+    def run(x):
+        return P.crf_stereo_infer(x, right, cfg, device=DEV)["disparity"].double().cpu()
+
+    f32, f32_ulp = run(left), run(left * (1 + torch.finfo(torch.float32).eps))
+    as_image = P._as_image
+    P._as_image = lambda x, device: torch.as_tensor(x).to(device=device, dtype=torch.float64)
+    try:
+        f64 = run(left.double())
+    finally:
+        P._as_image = as_image
+    diff, ulp = (f32 - f64).abs(), (f32_ulp - f32).abs()
+    busy_ms = profile("O tsukuba_dense (one float32 pipeline)",
+                      lambda: P.crf_stereo_infer(left, right, cfg, device=DEV))
+    log(f"O tsukuba_dense: |float32 map (TF32 off) - float64 map| max {float(diff.max()):.3g} px, "
+        f"mean {float(diff.mean()):.3g} px; one rounding of the left image moves the float32 map "
+        f"by up to {float(ulp.max()):.3g} px, mean {float(ulp.mean()):.3g} px")
+    check(float(diff.max()) <= DISP_ATOL + float(ulp.max()),
+          f"tsukuba_dense: the float32 map is off the float64 one by more than {DISP_ATOL} px "
+          "plus what one rounding of the input moves it")
+    return {"device_busy_ms": busy_ms,
+            "f64_max_abs_diff": float(diff.max()), "f64_mean_abs_diff": float(diff.mean()),
+            "within_disp_atol": float(diff.max()) <= DISP_ATOL,
+            "one_ulp_max_abs_diff": float(ulp.max()), "one_ulp_mean_abs_diff": float(ulp.mean())}
+
+
+def check_middlebury_kernel(line: dict) -> dict:
+    """middlebury64's configuration on the card with K1 and with K1's plain
+    version in its place, both in deterministic mode: bf16 maps within
+    BF16_MEAN_TOL (mean)."""
+    from depth_estimation_torch.models import pipeline as P
+    from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
+                                                           fused_energy_update_reference)
+    from depth_estimation_torch.tools import bench_suite
+
+    h, w, L = bench_suite.FULL["middlebury64"]
+    left, right, _ = bench_suite.natural_pair(h, w, L - 2, DEV)
+    cfg = bench_suite.lattice_cfg(L, left, DEV)
+    check(cfg.max_vertices == line["max_vertices"], f"middlebury64 calibrates to {cfg}")
+
+    def run(update):
+        P.fused_energy_update = update
+        try:
+            return P.crf_stereo_infer(left, right, cfg, device=DEV)["disparity"].float().cpu()
+        finally:
+            P.fused_energy_update = fused_energy_update
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        zero_launches()
+        fused = run(fused_energy_update)
+        check(launches()["K1"] == NITERS, f"middlebury64's fused run launched {launches()}")
+        plain = run(fused_energy_update_reference)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    d = (fused - plain).abs()
+    log(f"O middlebury64 ({h}x{w}, L={L}, tile_px={cfg.tile_px}, tile_u={cfg.tile_u}, "
+        f"sort_mode={cfg.sort_mode}): |K1's bf16 map - the plain version's in its place| "
+        f"(deterministic) max {float(d.max()):.3g} px, mean {float(d.mean()):.3g} px, "
+        f"{int((d > 0).sum())} of {d.numel()} pixels differ")
+    check(float(d.mean()) <= BF16_MEAN_TOL, f"middlebury64: K1 against its plain version, mean "
+          f"{float(d.mean())} px")
+    return {"plain_max_abs_diff": float(d.max()), "plain_mean_abs_diff": float(d.mean()),
+            "tile_px": cfg.tile_px, "tile_u": cfg.tile_u, "sort_mode": cfg.sort_mode}
+
+
+def run_benchmarks(a: dict, k: dict) -> dict:
+    """O: the benchmark programs as a user calls them: `bench_torch.py` in a
+    process of its own on its defaults and on A's pair (`--pair`, with
+    `--dense-baseline`), whose calibration must be A's; the five
+    configurations of `tools.bench_suite` at full size in-process, each
+    between `zero_launches` and `launches` (K1 5 a call in middlebury64,
+    K1w 5 in fullres128, K1 40 a batch in serving_batched, none in
+    tsukuba_dense and trainable_step), with the dense oracle's float32 map
+    against its float64 one, middlebury64's occupancy and K1 against its
+    plain version, fullres128 within FULLRES_REL_TOL of K's warm run; and
+    `tools.bench_scaling` on this card (size 1)."""
+    import tempfile
+
+    from depth_estimation_torch.tools import bench_scaling, bench_suite
+
+    TOOLS_OUT.mkdir(exist_ok=True)
+    log(f"O: the benchmark programs on {card_line()}")
+    out = {}
+    t_phase = time.perf_counter()
+    out["O1"] = run_bench_line("O1", ["--reps", str(BENCH_REPS)])
+    a_left, a_right, _ = synthetic_pair(0.5)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(f"{tmp}/a.npz", left=a_left, right=a_right)
+        out["O2"] = run_bench_line("O2", ["--reps", str(BENCH_REPS), "--pair", f"{tmp}/a.npz",
+                                          "--dense-baseline"])
+    d = out["O2"]["line"]["detail"]
+    got = {key: d[key] for key in ("max_vertices", "tile_px", "tile_u", "sort_mode")}
+    want = {"max_vertices": a["max_vertices"], "tile_px": TILE_PX, "tile_u": a["tile_u"],
+            "sort_mode": a["sort_mode"]}
+    check(got == want, f"O2: the bench's configuration on A's pair {got}, A's {want}")
+    check(d["vs_baseline_source"] == "dense oracle measured live"
+          and out["O2"]["line"]["vs_baseline"] > 1.0, f"O2: vs_baseline {out['O2']['line']}")
+
+    for i, name in enumerate(bench_suite.CONFIGS, 1):
+        zero_launches()
+        t0 = time.perf_counter()
+        line, = bench_suite.main(["--configs", str(i), "--reps", str(SUITE_REPS),
+                                  "--out", str(TOOLS_OUT / f"bench_suite_{name}_O.json")])
+        wall = time.perf_counter() - t0
+        got = launches()
+        keys = SUITE_KEYS[name]
+        check(tuple(line)[:len(keys)] == keys, f"O {name}: keys {list(line)}")
+        check(line["device"] == torch.cuda.get_device_name(0) and np.isfinite(line["value"])
+              and line["value"] > 0, f"O {name}: {line}")
+        want = {kn: SUITE_LAUNCHES[name].get(kn, 0) for kn in got}
+        check(line["launches_per_call"] == want
+              and all((got[kn] > 0) == (want[kn] > 0) for kn in got),
+              f"O {name}: launches a call {line['launches_per_call']}, in the run {got}; want "
+              f"{want} a call")
+        log(f"O {name} ({wall:.1f} s; launches in the run {got}): {json.dumps(line)}")
+        res = {"line": line, "launches": got, "wall_s": wall}
+        if "num_valid" in line:
+            check(line["num_valid"] <= line["max_vertices"] and not line["tile_overflow"],
+                  f"O {name}: {line['num_valid']} vertices for {line['max_vertices']}, "
+                  f"{line['tile_overflow']} tile entries dropped")
+        if name == "tsukuba_dense":
+            check(line["allow_tf32"] is False, "tsukuba_dense ran with TF32")
+            res.update(check_dense_oracle(line))
+        elif name == "middlebury64":
+            res.update(check_middlebury_kernel(line))
+        elif name == "fullres128":
+            rel = line["pipeline_ms"] / k["ms"] - 1.0
+            log(f"O fullres128: pipeline {line['pipeline_ms']:.3f} ms, K's warm run "
+                f"{k['ms']:.3f} ms in this call ({100 * rel:+.2f}%)")
+            check(abs(rel) <= FULLRES_REL_TOL, f"fullres128 {100 * rel:+.2f}% off K's warm run")
+            res["rel_to_k"] = rel
+        out[name] = res
+
+    zero_launches()
+    t0 = time.perf_counter()
+    res = bench_scaling.main(["--out", str(TOOLS_OUT / "bench_scaling_O.json")])
+    wall = time.perf_counter() - t0
+    log(f"O bench_scaling ({wall:.1f} s): {json.dumps(res)}")
+    cards = torch.cuda.device_count()
+    check(tuple(res) == SCALING_KEYS, f"bench_scaling keys {list(res)}")
+    check(all(int(c) <= cards for c in res["frames_per_s"]) and res["frames_per_s"]["1"] > 0
+          and res["efficiency_vs_linear"]["1"] == 1.0, f"bench_scaling {res}")
+    check(cards > 1 or "one card" in (res["note"] or ""), f"bench_scaling's note {res['note']}")
+    check(all(v == 0 for v in launches().values()), f"bench_scaling launched {launches()}")
+    out["scaling"] = {**res, "wall_s": wall}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"O: {out['wall_s']:.1f} s in all; {card_line()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2291,7 +2490,9 @@ def main() -> int:
     wd = run_wide_disparity()
     m = run_route_check()
     tools = run_tools()
+    bench = run_benchmarks(a, k)
     log(json.dumps({"tools": {"N": tools}}))
+    log(json.dumps({"benchmarks": {"O": bench}}))
     log(json.dumps({"pipelines": {"A": a, "B": b, "E": e, "K": k, "L": wd, "M": m}}))
     log(json.dumps({"training": {"C": c, "D": d}}))
     log(json.dumps({"serving": {"F": f}, "world": {"G": g}, "operators": {"H": h}}))

@@ -1,10 +1,10 @@
-"""Command-line studies of the port, each the counterpart of one script of
-the JAX system's `tools/` directory, run as
+"""Command-line studies and benchmarks of the port, each the counterpart
+of one script of the JAX system's `tools/` directory, run as
 
     python -m depth_estimation_torch.tools.<name> [--device cpu] ...
 
-on the GPU unless `--device cpu` is given. Each prints one JSON line and
-writes a file only where `--out` is given.
+on the GPU unless `--device cpu` is given. Each prints one JSON line (the
+suite one a configuration) and writes a file only where `--out` is given.
 
 - `profile_stages` ports `tools/profile_stages.py`: per-stage timing of
   the lattice pipeline (update, elemwise, embed, plan, splat, blur, slice,
@@ -20,7 +20,15 @@ writes a file only where `--out` is given.
 - `train_coco_scaled` ports `tools/train_coco_scaled.py`: procedural
   shapes exported as a COCO json + png tree, trained through
   `COCODetection` and `train_detection_coco`.
+- `bench_suite` ports `tools/bench_suite.py`: one measurement of each of
+  the JAX suite's five configurations (tsukuba_dense, middlebury64,
+  trainable_step, fullres128, serving_batched), a JSON line each with the
+  JAX suite's keys and the fused-update kernels' launches per call.
+- `bench_scaling` ports `tools/bench_scaling.py`: frames/s of the batched
+  lattice pipeline over world sizes of a `torch.distributed` world, capped
+  at the cards present.
 
-The benchmark scripts (`bench.py`, `tools/bench_suite.py`,
-`tools/bench_scaling.py`) are not ported here.
+`bench.py`'s counterpart is `bench_torch.py` at the repo's root. The JAX
+system's `BENCH_SUITE.json` and `SCALING.json` hold a TPU's numbers; the
+port neither reads nor writes them.
 """

@@ -24,7 +24,8 @@ from depth_estimation_torch.ops.spectral import spectral_segment
 from depth_estimation_torch.parallel.mesh import make_mesh
 from depth_estimation_torch.parallel.stereo_tiled import crf_stereo_infer_tiled
 from depth_estimation_torch.ops.cuda import meanfield as K
-from depth_estimation_torch.tools import (profile_stages, tiled_stereo_study, train_coco_scaled,
+from depth_estimation_torch.tools import (bench_scaling, bench_suite, profile_stages,
+                                          tiled_stereo_study, train_coco_scaled,
                                           train_detect_scaled)
 from depth_estimation_torch.train import experiments as TE
 from depth_estimation_torch.train.trainer import Trainer
@@ -58,16 +59,20 @@ SLICE_MODULES = [f"depth_estimation_torch.{m}" for m in (
     "utils.weights", "apps.detect", "apps.train_detect",
     "ops.cuda.meanfield", "ops.boxfilter", "ops.costvolume", "data.datasets", "utils.native",
     "utils.build", "tools.profile_stages", "tools.tiled_stereo_study",
-    "tools.train_detect_scaled", "tools.train_coco_scaled")]
+    "tools.train_detect_scaled", "tools.train_coco_scaled", "tools.bench_suite",
+    "tools.bench_scaling")]
 # the entry points of the port's tools subpackage, each a JAX system tool's
-TOOLS = ("profile_stages", "tiled_stereo_study", "train_detect_scaled", "train_coco_scaled")
+TOOLS = ("profile_stages", "tiled_stereo_study", "train_detect_scaled", "train_coco_scaled",
+         "bench_suite", "bench_scaling")
+# the port's benchmark line at the repo's root, the JAX system's bench.py's counterpart
+BENCH = REPO / "bench_torch.py"
 
 
 def test_every_module_imports_without_jax():
     assert set(SLICE_MODULES) <= set(_modules())
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
-            f"for m in {_modules()!r}:\n"
+            f"for m in {_modules() + ['bench_torch']!r}:\n"
             "    importlib.import_module(m)\n"
             "assert not any(k.startswith(('jax', 'depth_estimation_tpu')) or k.split('.')[0] == "
             "'tools' for k in sys.modules if sys.modules[k] is not None)\n"
@@ -80,6 +85,7 @@ def test_every_module_imports_without_jax():
 
 def test_no_file_names_the_jax_package():
     files = [p for p in PKG.rglob("*") if p.is_file() and p.suffix in (".py", ".cu", ".cuh")]
+    files.append(BENCH)
     assert any(p.suffix == ".cu" for p in files)
     named = {".".join(p.relative_to(REPO).with_suffix("").parts) for p in files}
     assert set(SLICE_MODULES) <= named
@@ -90,19 +96,22 @@ def test_no_file_names_the_jax_package():
 
 
 def test_tools_import_nothing_of_the_jax_system():
-    """The tools' modules import only the port (relatively), the standard
-    library, torch, numpy and PIL: no JAX, no JAX package, nothing of the
-    JAX system's `tools/`, and no module loaded by path."""
+    """The tools' modules and `bench_torch.py` import only the port
+    (relatively; the bench by its name), the standard library, torch, numpy
+    and PIL: no JAX, no JAX package, nothing of the JAX system's `tools/` or
+    `bench.py`, and no module loaded by path."""
     allowed = {"argparse", "dataclasses", "functools", "json", "os", "socket", "statistics",
-               "tempfile", "time", "typing", "__future__", "numpy", "torch", "PIL"}
-    for name in TOOLS:
-        path = PKG / "tools" / f"{name}.py"
+               "sys", "tempfile", "time", "typing", "__future__", "numpy", "torch", "PIL"}
+    for path in [PKG / "tools" / f"{name}.py" for name in TOOLS] + [BENCH]:
+        name = path.stem
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 roots = {a.name.split(".")[0] for a in node.names}
             elif isinstance(node, ast.ImportFrom):
                 roots = set() if node.level else {node.module.split(".")[0]}
+                if path == BENCH:  # outside the package: the port by absolute name
+                    roots -= {"depth_estimation_torch"}
             else:
                 continue
             assert roots <= allowed, (name, roots)
@@ -231,6 +240,9 @@ def test_entry_points_default_to_the_gpu(tmp_path):
         lambda: tiled_stereo_study.main(["--mode", "time", "--small"]),
         lambda: train_detect_scaled.main(["--steps", "1"]),
         lambda: train_coco_scaled.main(["--steps", "1", "--data-dir", str(tmp_path)]),
+        lambda: bench_suite.main(["--small", "--configs", "1"]),
+        lambda: bench_scaling.main(["--devices", "1"]),
+        lambda: importlib.import_module("bench_torch").main(["--h", "32", "--w", "48"]),
     ]
     for call in no_gpu:
         with pytest.raises(RuntimeError, match="no CUDA device"):
