@@ -28,6 +28,7 @@ from ..ops.permutohedral import (apply_plan, build_plan, rotation_matrices,
                                  suggest_capacity, suggest_pieces, suggest_sort_mode,
                                  suggest_tile_u)
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 __all__ = ["CRFStereoConfig", "stereo_unary", "calibrate_capacity", "crf_stereo_infer",
            "blocked", "unblocked"]
@@ -93,6 +94,7 @@ def unblocked(flat: torch.Tensor, h: int, w: int, B: int) -> torch.Tensor:
     return flat.reshape(h // B, w // B, B, B, K).permute(0, 2, 1, 3, 4).reshape(h, w, K)
 
 
+@span("stereo.unary")
 def stereo_unary(left: torch.Tensor, right: torch.Tensor, cfg: CRFStereoConfig) -> torch.Tensor:
     """Unary energies (h, w, L): raw window sums of the matching cost."""
     return cfg.unary_scale * cost_volume(left, right, cfg.num_disp, cfg.window_size)
@@ -138,6 +140,7 @@ def calibrate_capacity(
                    **tile_kw)
 
 
+@span("stereo.frame")
 def crf_stereo_infer(left, right, cfg: CRFStereoConfig, device=None) -> dict:
     """Full pipeline on an (h, w, 3) pair. Returns the CRF and unary
     disparities, the label probabilities and unaries (all (h, w, ...)), and

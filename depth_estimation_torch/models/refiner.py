@@ -29,6 +29,7 @@ from ..ops.costvolume import expected_disparity
 from ..ops.guided_filter import guided_adjacency_apply, guided_adjacency_init
 from ..ops.permutohedral import build_plan, lattice_filter_planned
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .pipeline import blocked, unblocked
 
 __all__ = ["CRFasRNN", "CRFDepthRefiner", "CRFWithUncertainty", "CRFDepthUpsampler"]
@@ -56,6 +57,7 @@ class CRFasRNN(nn.Module):
         else:
             raise ValueError(backend)
 
+    @span("crf.forward")
     def forward(self, guide: torch.Tensor, logits: torch.Tensor, niters: int = 2, r: int = 15,
                 confidence: torch.Tensor | None = None, labels: torch.Tensor | None = None,
                 subsample: int = 2, max_vertices: int | None = None, tile_px: int | None = None,

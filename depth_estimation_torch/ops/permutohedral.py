@@ -31,6 +31,12 @@ boundaries or `band`.
 `torch.autograd.Function`: ∂src is the transposed filter (the blur axes
 in reverse), ∂ref the analytic 4-filter identity of the dense Gaussian,
 both through the forward's plan.
+
+While a torch profiler records, `build_plan`, the splat, blur and slice of
+`apply_plan` and the filter's backward run inside the spans
+`lattice.plan`, `lattice.splat`, `lattice.blur`, `lattice.slice` and
+`lattice.backward`, and each plan counts its occupied slots and capacity
+(`utils.profiling`).
 """
 from __future__ import annotations
 
@@ -39,6 +45,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import count, span
 
 __all__ = [
     "PermutohedralPlan",
@@ -310,6 +318,15 @@ def _incidence(u_pm: torch.Tensor, bary_pm: torch.Tensor, U: int, tile_bf16: boo
     return A[:, :U].to(torch.bfloat16 if tile_bf16 else bary_pm.dtype)
 
 
+def _counted(plan: PermutohedralPlan) -> PermutohedralPlan:
+    """The plan, its occupied slots and its capacity counted (while a
+    profiler records)."""
+    count("lattice.vertices", plan.num_valid)
+    count("lattice.capacity", plan.capacity)
+    return plan
+
+
+@span("lattice.plan")
 def build_plan(
     ref: torch.Tensor,
     max_vertices: int | None = None,
@@ -340,7 +357,7 @@ def build_plan(
     if (tile is not None and sort_mode == "packed1" and not order_by_sum
             and max_pieces is None):
         C_lean = n * (d + 1) if max_vertices is None else int(max_vertices)
-        return _build_plan_tiled_lean(ref, C_lean, int(tile), int(tile_u), tile_bf16)
+        return _counted(_build_plan_tiled_lean(ref, C_lean, int(tile), int(tile_u), tile_bf16))
     dev = ref.device
     key_cols, bary_t = _simplex_embed_cols(ref)
     N = n * (d + 1)
@@ -419,9 +436,9 @@ def build_plan(
         tile_vid = torch.where(iota_u[None, :] < ucount,
                                group_slot_pad[tile_start[:T, None] + iota_u[None, :]], C)
 
-    return PermutohedralPlan(
+    return _counted(PermutohedralPlan(
         slot=slot, bary=bary_t.T, neighbors=neighbors, num_valid=num_valid,
-        tile_A=tile_A, tile_vid=tile_vid, tile_overflow=tile_overflow, **pieces)
+        tile_A=tile_A, tile_vid=tile_vid, tile_overflow=tile_overflow, **pieces))
 
 
 def _piece_tables(slot_e: torch.Tensor, bary_e: torch.Tensor, n: int, C: int,
@@ -672,7 +689,12 @@ def _slice(plan: PermutohedralPlan, vals: torch.Tensor) -> torch.Tensor:
 def apply_plan(plan: PermutohedralPlan, src: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """Filter (n, L) values through a prebuilt plan. Linear in `src`;
     `reverse=True` traverses the blur axes in reverse (the transpose)."""
-    return _slice(plan, _blur(plan, _splat(plan, src), reverse))
+    with span("lattice.splat"):
+        vals = _splat(plan, src)
+    with span("lattice.blur"):
+        vals = _blur(plan, vals, reverse)
+    with span("lattice.slice"):
+        return _slice(plan, vals)
 
 
 # ---------------------------------------------------------------------------
@@ -692,6 +714,7 @@ class _PlannedFilter(torch.autograd.Function):
         return apply_plan(plan, src)
 
     @staticmethod
+    @span("lattice.backward")
     def backward(ctx, g):
         src, ref = ctx.saved_tensors
         plan = ctx.plan

@@ -31,7 +31,6 @@ from depth_estimation_torch.train import experiments as TE
 from depth_estimation_torch.train.trainer import Trainer
 from depth_estimation_torch.utils import build
 from depth_estimation_torch.utils.device import resolve_device
-from depth_estimation_torch.utils.profiling import StageTimer
 from depth_estimation_torch.utils.timing import chain_timer, loop_timer
 from depth_estimation_torch.utils.weights import load_jax_params, params_from_jax
 
@@ -228,7 +227,6 @@ def test_entry_points_default_to_the_gpu(tmp_path):
         lambda: crf_stereo_infer_tiled(left, left, cfg, make_mesh()),
         lambda: spectral_segment(left),
         lambda: segment.main(["--image", str(tmp_path / "l.png")]),
-        lambda: StageTimer(),
         lambda: chain_timer(lambda acc: acc),
         lambda: loop_timer(lambda acc: acc),
         lambda: MaskRCNN(),

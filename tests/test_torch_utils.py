@@ -76,25 +76,19 @@ def test_scalarize_and_jitter_match_jax():
     assert timing.scalarize([]).item() == 0.0
 
 
-def test_stage_timer_roofline_and_trace_run_on_the_cpu(tmp_path):
+def test_roofline_and_trace_run_on_the_cpu(tmp_path):
     from depth_estimation_tpu.utils import profiling as JP
 
-    timer = profiling.StageTimer(device="cpu")
-    with timer.span("matmul"):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    out = timer.time_fn("add", torch.add, torch.ones(8), torch.ones(8), reps=3)
-    assert torch.equal(out, torch.full((8,), 2.0))
-    lines = []
-    spans = timer.report(print_fn=lines.append)
-    assert set(spans) == {"matmul", "add"} and all(v >= 0 for v in spans.values())
-    assert len(lines) == 2
     r = profiling.roofline(1e-3, 3.35e9, 67e9)
     assert r == pytest.approx(JP.roofline(1e-3, 3.35e9, 67e9, peaks=profiling.H100_PEAK))
     assert r["hbm_fraction"] == pytest.approx(1.0) and r["flops_fraction_f32"] == pytest.approx(1.0)
     path = tmp_path / "trace.json"
     with profiling.trace(path):
-        torch.ones(16).cumsum(0)
-    assert "traceEvents" in json.loads(path.read_text())
+        with profiling.span("lattice.splat"):
+            torch.ones(16).cumsum(0)
+    events = json.loads(path.read_text())["traceEvents"]
+    # the program's spans are in the exported trace, above the ops they hold
+    assert any(e.get("name") == "lattice.splat" for e in events)
 
 
 def test_memory_report_runs_on_the_cpu():
