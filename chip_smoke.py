@@ -149,7 +149,10 @@ and 256 labels, at the edges of its padded widths and at fullres128's
 shape; K1x at 257, 288, 300, 320, 384, 512, 1000 and 1024 labels; K1xx,
 which serves every L above 1024, at 1025, 1088, 1100, 1536, 2048 and 4099
 and at phase M's shape; K1w_ffma, the earlier FFMA design and on no route now, launched directly at
-257, 300 and 1025) and times them (K1 also at phase L's rows with 64
+257, 300 and 1025; the lattice apply's slice bit for bit and splat within a
+bf16 rounding at fullres128's shape, (2088960, 128) bf16 through K's frame's
+plan of 131072 slots, and K's run launches each 5 times) and times them
+(the lattice kernels there beside their byte bounds; K1 also at phase L's rows with 64
 labels; K1w_ffma at fullres128's rows with 24, 128 and 256 labels, as the
 yardstick of the FFMA design K1w replaced there, at phase L's shape beside
 K1x and at (393216, 1536) beside K1xx; K1xx also at phase L's shape),
@@ -243,6 +246,9 @@ J_MODEL = dict(num_classes=4, blocks=(2, 2, 2, 2), fpn_dim=128, num_proposals=32
 # (`tools.bench_suite.lattice_cfg`); its 192×256 crop against the port's CPU
 # run in float32
 FULL_H, FULL_W, FULL_LABELS, FULL_MAX_DISP = 1088, 1920, 128, 96
+# the lattice capacity K's calibration gives its frame (headroom 3), at which
+# the lattice apply's kernels are timed
+FULL_CAPACITY = 131072
 CROP_H, CROP_W = 192, 256
 # the label counts at which K1w is held against its plain version, and the
 # edges of its padded widths (32, 64, 128, 256) and of its limit; K1x's
@@ -301,7 +307,10 @@ SUITE_LAUNCHES = {"tsukuba_dense": {}, "middlebury64": {"K1": NITERS}, "trainabl
                   "fullres128": {"K1w": NITERS}, "serving_batched": {"K1": SERVE_BATCH * NITERS}}
 BENCH_REPS, SUITE_REPS = 10, 5
 # O: fullres128's pipeline in the suite against K's warm run in the same
-# call, as a fraction (both ~95% busy; K moved by <= 3.1% between calls)
+# call, both by the suite's timer (a chain of calls, differenced), as a
+# fraction (K moved by <= 3.1% between calls); a single call's CUDA events
+# also hold the host's start of the call, ~12 ms of a ~104 ms frame since
+# the lattice kernels
 FULLRES_REL_TOL = 0.10
 
 
@@ -420,8 +429,11 @@ def ptxas_report(K) -> list[dict]:
     4)), K1w (<float or bfloat16, LP>, its bounds from `wide_config`), K1x
     (<float or bfloat16, rows a tile, values a lane>, (its threads, 1); and
     its Mu-tiling pass, no bounds), K1xx (<float or bfloat16>, (its
-    threads, 1); and its Mu-tiling pass) and K1w_ffma (<float or bfloat16>,
-    (256, 2)), each held to its own register cap, with the dynamic shared
+    threads, 1); and its Mu-tiling pass), K1w_ffma (<float or bfloat16>,
+    (256, 2)) and the lattice apply's splat and slice (<float or double
+    weights, float, bfloat16 or double values, 1 or 8 values a lane>, 256
+    threads and 2 to 8 blocks an SM), each held to its own register cap,
+    with the dynamic shared
     memory of K1's launch at the flagship row count, of the K1w kernels' at
     fullres128's row count, of K1x's at phase L's and of K1xx's at its
     timed shape."""
@@ -467,6 +479,20 @@ def ptxas_report(K) -> list[dict]:
     wanted += [("K1w_ffma", "any L", dtname[m], ffma.get((m,)),
                 K.wide_ffma_geometry(n_full, FULL_LABELS).smem_bytes, register_cap(256, 2))
                for m in dtname]
+    # the lattice apply's kernels: <weights, values, values a lane>, 256
+    # threads and the blocks an SM of their `Blocks`
+    lattice = _ptxas("lattice_apply",
+                     r"lattice_(splat|slice)_kernelI(f|d)(f|d|13__nv_bfloat16)Li(\d)E")
+    names = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16"}
+
+    def lattice_blocks(kind, w, v):
+        if kind == "splat":
+            return 2 if "d" in (w, v) else 4
+        return 4 if "d" in (w, v) else 6 if v == "f" else 8
+    wanted += [(f"lattice {kind}", f"weights {names[w]} vec={vec}", names[v],
+                lattice.get((kind, w, v, vec)), 0, register_cap(256, lattice_blocks(kind, w, v)))
+               for kind in ("splat", "slice") for w in "fd" for v in ("f", "13__nv_bfloat16", "d")
+               for vec in "18"]
     rows = []
     for kernel, which, dt, r, dynamic, cap in wanted:
         check(r is not None and "registers" in r and "spill_stores" in r,
@@ -586,6 +612,78 @@ def time_yardsticks(K, n: int, L: int, dtype) -> dict:
     log(f"  yardsticks {str(dtype)[6:]}: K1 on one row {out['one_row_ms'] * 1e3:.2f} us, "
         f"copy_ of one ({n}, {L}) array {out['copy_ms'] * 1e3:.2f} us (L2 flushed)")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the lattice apply's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def time_lattice_apply(reps: int = 100, plain_reps: int = 10) -> dict:
+    """The untiled splat and slice at fullres128's shape: the plan of K's
+    left frame (1088×1920, the 5-D guide, FULL_CAPACITY slots), bf16 values
+    at FULL_LABELS. Checks the slice kernel bit for bit against its plain
+    version on the card and the splat within one bf16 rounding of its plain
+    version (both f32 sums, in other orders, rounded to bf16), each kernel's
+    launch counted once; then times each wrapper (median of `reps`
+    launches; the plain versions `plain_reps`), L2 flushed before each,
+    against its byte bound: every input read once and the output written
+    once in its dtype (the splat: src, the sorted entries and their weights,
+    the slots' row and chunk starts and the bf16 table; the slice: the bf16
+    table, the int64 slots, the weights and the f32 output)."""
+    from depth_estimation_torch.crf.guides import stack_guide
+    from depth_estimation_torch.data.synthetic import make_stereo_pair
+    from depth_estimation_torch.ops import permutohedral as P
+    from depth_estimation_torch.ops.cuda import lattice as LK
+
+    left, _, _ = make_stereo_pair(np.random.RandomState(0), FULL_H, FULL_W, num_layers=6,
+                                  max_disp=FULL_MAX_DISP)
+    guide = stack_guide(torch.as_tensor(left.astype(np.float32), device=DEV), 0.1, 0.1)
+    plan = P.build_plan(guide.reshape(FULL_H * FULL_W, -1), max_vertices=FULL_CAPACITY)
+    n, d1 = plan.bary.shape
+    L, C, N = FULL_LABELS, plan.capacity, n * d1
+    g = torch.Generator(device=DEV).manual_seed(7)
+    src = torch.rand(n, L, generator=g, device=DEV).to(torch.bfloat16)
+    scale = LK.slice_scale(plan.d)
+    before = LK.launch_counts()
+    entries = (plan.entry_order, plan.entry_weight, plan.slot_start, plan.chunk_start)
+    table = LK.lattice_splat(src, *entries)
+    vals = P._blur(plan, table, False)
+    out = LK.lattice_slice(vals, plan.slot, plan.bary, scale)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in LK.launch_counts().items()}
+    check(launched == {"splat": 1, "slice": 1}, f"lattice kernels launched {launched}")
+    check(torch.equal(out, LK.slice_untiled_reference(plan, vals)),
+          "the slice kernel differs from its plain version")
+    plain_table = LK.splat_untiled_reference(plan, src).float()
+    gap = (table.float() - plain_table).abs()
+    bad = int((gap > 2.0 ** -7 * plain_table.abs() + 1e-6 * float(plain_table.abs().max())).sum())
+    check(bad == 0, f"{bad} splat values differ from the plain version by more than a bf16 ulp")
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEV)
+    runs = {"splat": (lambda: LK.lattice_splat(src, *entries),
+                      lambda: LK.splat_untiled_reference(plan, src),
+                      n * L * 2 + N * 4 + N * 4 + 2 * (C + 1) * 4 + (C + 1) * L * 2),
+            "slice": (lambda: LK.lattice_slice(vals, plan.slot, plan.bary, scale),
+                      lambda: LK.slice_untiled_reference(plan, vals),
+                      (C + 1) * L * 2 + N * 8 + N * 4 + n * L * 4)}
+    res = {"shape": [n, L], "capacity": C, "num_valid": int(plan.num_valid), "dtype": "bf16",
+           "splat_max_abs_err": float(gap.max()), "reps": reps, "plain_reps": plain_reps}
+    for name, (kernel, plain, nbytes) in runs.items():
+        for _ in range(3):
+            kernel()
+            plain()
+        ms = median_ms(kernel, reps, flush)
+        plain_ms = median_ms(plain, plain_reps, flush)
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bytes": nbytes,
+                     "bound_share": bound_ms / ms}
+        log(f"  time lattice {name} n={n} L={L} C={C} bf16: kernel {ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB; "
+            f"{100 * bound_ms / ms:.1f}% of it) (medians of {reps} and {plain_reps} launches)")
+    log(f"  lattice plan: {int(plan.num_valid)} of {C} slots, longest slot "
+        f"{int((plan.slot_start[1:] - plan.slot_start[:-1]).max())} entries; splat max |kernel - "
+        f"plain| {res['splat_max_abs_err']:.3g}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1575,6 +1673,7 @@ def run_fullres() -> dict:
                                                            fused_energy_update_reference)
     from depth_estimation_torch.tools.bench_suite import lattice_cfg
     from depth_estimation_torch.train.metrics import bad_pixel_ratio, epe
+    from depth_estimation_torch.utils.timing import jitter, loop_timer, scalarize
 
     tag = f"K (fullres128, {FULL_H}x{FULL_W}, L={FULL_LABELS}, bf16, fused)"
     left, right, gt = make_stereo_pair(np.random.RandomState(0), FULL_H, FULL_W, num_layers=6,
@@ -1589,18 +1688,25 @@ def run_fullres() -> dict:
         f"tile_bf16={cfg.tile_bf16}")
 
     # the main path: launch counts read from zero just around one run
+    from depth_estimation_torch.ops.cuda import lattice as LK
+
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
+    LK.zero_launch_counts()
     t0 = time.perf_counter()
     out = crf_stereo_infer(left, right, cfg, device=DEV)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     got = launches()
     k1, k1w, ffma = got["K1"], got["K1w"], got["K1w_ffma"]
+    lattice = LK.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"{tag}: first run {first_s:.2f} s; launches in one run: {got}; peak device memory "
-        f"{peak / 2**30:.2f} GiB")
+    log(f"{tag}: first run {first_s:.2f} s; launches in one run: {got}, lattice {lattice}; peak "
+        f"device memory {peak / 2**30:.2f} GiB")
     only_launched("K1w", NITERS)
+    # an untiled plan: each apply's splat and slice run the lattice kernels
+    check(cfg.tile_px is not None or lattice == {"splat": NITERS, "slice": NITERS},
+          f"lattice kernels launched {lattice}, want {NITERS} of each")
     plan = out["plans"][0]
     num_valid = int(plan.num_valid)
     overflow = 0 if plan.tile_overflow is None else int(plan.tile_overflow)  # tiled plans only
@@ -1689,11 +1795,19 @@ def run_fullres() -> dict:
 
     crf_stereo_infer(left, right, cfg, device=DEV)  # warm-up
     ms = median_ms(lambda: crf_stereo_infer(left, right, cfg, device=DEV), 3)
-    log(f"{tag}: warm pipeline {ms:.3f} ms (median of 3, CUDA events)")
+    # the same pipeline timed as tools/bench_suite.py times it (a chain of
+    # calls, differenced), which leaves out the host's start of each call
+    # that a single call's events hold: O's yardstick
+    lt, rt = (torch.as_tensor(x, device=DEV) for x in (left, right))
+    chain_ms = 1e3 * loop_timer(lambda a: a + scalarize(crf_stereo_infer(
+        jitter(lt, a), rt, cfg, device=DEV)["disparity"]), reps=3, device=DEV)
+    log(f"{tag}: warm pipeline {ms:.3f} ms (median of 3, CUDA events), {chain_ms:.3f} ms a call "
+        "in a chain of 3 (the suite's timer)")
     busy_ms, k1w_ms = profile(f"pipeline {tag}",
                               lambda: crf_stereo_infer(left, right, cfg, device=DEV),
                               share_of="fused_energy_update_wide_kernel")
-    return {"launches_k1w": k1w, "launches_k1": k1, "launches_ffma": ffma, "ms": ms, "device_busy_ms": busy_ms,
+    return {"launches_k1w": k1w, "launches_k1": k1, "launches_ffma": ffma,
+            "launches_lattice": lattice, "ms": ms, "chain_ms": chain_ms, "device_busy_ms": busy_ms,
             "k1w_device_ms": k1w_ms, "k1w_share": k1w_ms / busy_ms if busy_ms else None,
             "first_s": first_s, "calibrate_s": calib_s, "tiled": tiled, "tile_u": cfg.tile_u,
             "max_vertices": cfg.max_vertices, "sort_mode": cfg.sort_mode, "num_valid": num_valid,
@@ -2353,9 +2467,10 @@ def run_benchmarks(a: dict, k: dict) -> dict:
         elif name == "middlebury64":
             res.update(check_middlebury_kernel(line))
         elif name == "fullres128":
-            rel = line["pipeline_ms"] / k["ms"] - 1.0
+            rel = line["pipeline_ms"] / k["chain_ms"] - 1.0
             log(f"O fullres128: pipeline {line['pipeline_ms']:.3f} ms, K's warm run "
-                f"{k['ms']:.3f} ms in this call ({100 * rel:+.2f}%)")
+                f"{k['chain_ms']:.3f} ms a call by the same timer in this call ({100 * rel:+.2f}%; "
+                f"K's median of single calls {k['ms']:.3f} ms)")
             check(abs(rel) <= FULLRES_REL_TOL, f"fullres128 {100 * rel:+.2f}% off K's warm run")
             res["rel_to_k"] = rel
         out[name] = res
@@ -2474,6 +2589,8 @@ def main() -> int:
     # K1xx at phase L's shape, on the inputs K1x is timed on there
     xx_mid = {dt: time_fused_update(K, n_mid, MID_LABELS, dtype, on_device=True, kernel="K1xx")
               for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    log("the lattice apply's splat and slice kernels against their plain versions:")
+    lat = time_lattice_apply()
 
     a = run_pipeline("A (bench configuration, lean plan, bf16)", 0.5,
                      dict(tile_bf16=True, compute_dtype="bf16"), "packed1", f32=False)
@@ -2627,9 +2744,18 @@ def main() -> int:
             "max_abs_err_L1025": {str(dt)[6:]: errs_ffma[n - 7, FFMA_CHECK_L[-1], dt]
                                   for dt in (torch.float32, torch.bfloat16)}},
     }
+    lattice = {
+        "name": "lattice_splat / lattice_slice", "route": "cuda",
+        "source": "depth_estimation_torch/csrc/lattice_apply.cu", "replaces": None,
+        "launches_k": k["launches_lattice"], **lat,
+        "design": "slice: a team of lanes a pixel gathers its d+1 rows of the L2-resident table, "
+                  "the plain version's order with separately rounded products and sums; splat: "
+                  "a segmented reduce over the entries sorted by slot, each slot cut into chunks "
+                  "of 256 entries, a team a chunk, a second pass adding a slot's chunk sums in "
+                  "order (deterministic, no atomics)"}
     log(f"chip_smoke: the whole script took {time.perf_counter() - t_start:.1f} s")
     log(card_line())
-    log(json.dumps({"kernels": [k1, k1w, k1x, k1xx]}))
+    log(json.dumps({"kernels": [k1, k1w, k1x, k1xx, lattice]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
     return 0

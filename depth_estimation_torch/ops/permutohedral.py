@@ -22,10 +22,16 @@ beyond `tile_u` and pieces beyond `max_pieces` soft-drop (counted by
 sort keys are int64, so a pinned 'packed1' raises instead of wrapping when
 the ranges do not fit.
 
-Splat sums go through `index_add_` into the (C+1, L) vertex table in f32
-(the JAX package's CSR boundary reduce computes the same sums in another
-order), so the plan keeps slot ids and no slot-sorted entry tables, CSR
-boundaries or `band`.
+An untiled plan without pieces also keeps its entries sorted by slot
+(`entry_order`, `slot_start`: the dedup's sort order and segment heads, in
+int32; `entry_weight`: their weights in that order; `chunk_start`: the
+splat kernel's chunks of each slot). On the card its splat
+and slice are the CUDA kernels of `ops/cuda/lattice.py`: the splat a
+segmented reduce over those sorted entries into the (C+1, L) vertex table
+in f32, the slice one gather of each pixel's d+1 rows. On the CPU they are
+the plain versions: the splat sums by `index_add_` in f32 (the JAX
+package's CSR boundary reduce computes the same sums in another order), the
+slice takes d+1 gathers. The plan keeps no `band`.
 
 `lattice_filter_planned` is differentiable in `src` and `ref` through a
 `torch.autograd.Function`: ∂src is the transposed filter (the blur axes
@@ -35,7 +41,9 @@ both through the forward's plan.
 While a torch profiler records, `build_plan`, the splat, blur and slice of
 `apply_plan` and the filter's backward run inside the spans
 `lattice.plan`, `lattice.splat`, `lattice.blur`, `lattice.slice` and
-`lattice.backward`, and each plan counts its occupied slots and capacity
+`lattice.backward`, each plan counts its occupied slots and capacity, and
+`apply_plan` counts its untiled applies (`lattice.apply.untiled`) and those
+whose splat and slice both ran the kernels (`lattice.apply.kernel`)
 (`utils.profiling`).
 """
 from __future__ import annotations
@@ -47,6 +55,7 @@ import numpy as np
 import torch
 
 from ..utils.profiling import count, span
+from .cuda import lattice as _kernels
 
 __all__ = [
     "PermutohedralPlan",
@@ -176,7 +185,14 @@ class PermutohedralPlan(NamedTuple):
     plan sets the entry-wise table `slot` to None and runs only through the
     tiled tables. The piece tables describe maximal runs of consecutive
     pixels, inside one group of G = `pack` pixels, that splat into one
-    slot: one (G·L)-wide row gather and a (G,) weight contraction a piece."""
+    slot: one (G·L)-wide row gather and a (G,) weight contraction a piece.
+    An untiled plan without pieces keeps its entries in slot order, the
+    table the splat kernel walks: `entry_order[slot_start[c]:slot_start[c +
+    1]]` are slot c's entries in increasing order, `entry_weight` their
+    weights; the overflow entries (slot C) lie past `slot_start[C]`. The
+    splat kernel cuts each slot's entries into chunks of
+    `ops/cuda/lattice.CHUNK`, a team a chunk: `chunk_start` numbers them,
+    slot by slot."""
 
     slot: torch.Tensor | None  # (n, d+1) vertex slot per (pixel, remainder), ≤ C
     bary: torch.Tensor  # (n, d+1) barycentric weights
@@ -189,6 +205,10 @@ class PermutohedralPlan(NamedTuple):
     piece_weights: torch.Tensor | None = None  # (T_P, G) bary weight per pixel of it
     piece_slot: torch.Tensor | None = None  # (T_P,) its slot (C: padding, dropped)
     num_pieces: torch.Tensor | None = None  # () pieces found (may exceed T_P: dropped)
+    entry_order: torch.Tensor | None = None  # (N,) int32 entries e = r·n + i in slot order
+    entry_weight: torch.Tensor | None = None  # (N,) their barycentric weights
+    slot_start: torch.Tensor | None = None  # (C+1,) int32 first sorted entry of each slot
+    chunk_start: torch.Tensor | None = None  # (C+1,) int32 first splat chunk of each slot
 
     @property
     def d(self) -> int:
@@ -380,7 +400,8 @@ def build_plan(
     # above the occupied range, which no neighbor query can equal
     dk = len(flat_cols)
     flat_rows = torch.stack(flat_cols, dim=-1)  # (N, dk)
-    head_entry = order[torch.nonzero(is_head).squeeze(1)[:C]]
+    heads = torch.nonzero(is_head).squeeze(1)  # sorted position of each slot's first entry
+    head_entry = order[heads[:C]]
     sent = torch.stack([c.max() for c in flat_cols]) + (d + 2)
     unique_keys = sent.expand(C, dk).clone()
     unique_keys[: head_entry.shape[0]] = flat_rows[head_entry]
@@ -400,6 +421,19 @@ def build_plan(
     if max_pieces is not None and pack > 1:
         pieces = _piece_tables(slot.T.reshape(N), bary_t.reshape(N), n, C,
                                int(max_pieces), int(pack))
+
+    entries = {}
+    if tile is None and not pieces:
+        # --- the entries in slot order for the splat kernel: slots past
+        # the occupied ones start at N; slot_start[C] bounds slots < C
+        slot_start = torch.full((C + 1,), N, dtype=torch.int32, device=dev)
+        slot_start[: min(heads.shape[0], C + 1)] = heads[: C + 1].to(torch.int32)
+        chunks = torch.div(slot_start[1:] - slot_start[:-1] + (_kernels.CHUNK - 1),
+                           _kernels.CHUNK, rounding_mode="floor")
+        chunk_start = torch.zeros(C + 1, dtype=torch.int32, device=dev)
+        chunk_start[1:] = torch.cumsum(chunks, 0)
+        entries = dict(entry_order=order.to(torch.int32), entry_weight=bary_t.reshape(N)[order],
+                       slot_start=slot_start, chunk_start=chunk_start)
 
     tile_A = tile_vid = tile_overflow = None
     if tile is not None:
@@ -438,7 +472,7 @@ def build_plan(
 
     return _counted(PermutohedralPlan(
         slot=slot, bary=bary_t.T, neighbors=neighbors, num_valid=num_valid,
-        tile_A=tile_A, tile_vid=tile_vid, tile_overflow=tile_overflow, **pieces))
+        tile_A=tile_A, tile_vid=tile_vid, tile_overflow=tile_overflow, **pieces, **entries))
 
 
 def _piece_tables(slot_e: torch.Tensor, bary_e: torch.Tensor, n: int, C: int,
@@ -636,7 +670,9 @@ def _splat(plan: PermutohedralPlan, src: torch.Tensor) -> torch.Tensor:
     the source rounded to the blocks' dtype and the products kept in f32
     (a bf16 `bmm` would round each tile's partials). The piece form (an
     untiled plan with piece tables, G·L ≤ 128) gathers one G-pixel row of
-    the source a piece and contracts it with the piece's weights."""
+    the source a piece and contracts it with the piece's weights. Any other
+    untiled splat is `ops/cuda/lattice.splat_untiled`: the kernel on the
+    card, the plain version on the CPU."""
     n, L = src.shape
     acc = torch.promote_types(src.dtype, torch.float32)
     if plan.tile_A is not None:
@@ -652,8 +688,7 @@ def _splat(plan: PermutohedralPlan, src: torch.Tensor) -> torch.Tensor:
         rows = torch.nn.functional.pad(src, (0, 0, 0, R * G - n)).reshape(R, G, L)
         contrib = torch.einsum("tg,tgl->tl", pw.to(acc), rows[plan.piece_group].to(acc))
         return _segment_sum(contrib, plan.piece_slot, plan.capacity, src.dtype)
-    contrib = (plan.bary[:, :, None] * src[:, None, :]).to(acc)  # (n, d+1, L)
-    return _segment_sum(contrib.reshape(-1, L), plan.slot.reshape(-1), plan.capacity, src.dtype)
+    return _kernels.splat_untiled(plan, src)
 
 
 def _blur_pass(vals: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
@@ -672,29 +707,33 @@ def _blur(plan: PermutohedralPlan, vals: torch.Tensor, reverse: bool) -> torch.T
 
 def _slice(plan: PermutohedralPlan, vals: torch.Tensor) -> torch.Tensor:
     """Vertex values back to pixels with barycentric weights, scaled by
-    1/(1+2^-d)."""
-    d = plan.d
+    1/(1+2^-d). Untiled, `ops/cuda/lattice.slice_untiled`: the kernel on
+    the card, the plain version on the CPU."""
     if plan.tile_A is not None:
         T, P, U = plan.tile_A.shape
         acc = torch.promote_types(vals.dtype, torch.float32)
         V = vals[plan.tile_vid].to(plan.tile_A.dtype).to(acc)  # (T, U, L)
         out = torch.bmm(plan.tile_A.to(acc), V)
-        return out.reshape(T * P, -1).to(vals.dtype) * (1.0 / (1.0 + 2.0 ** (-d)))
-    out = plan.bary[:, 0, None] * vals[plan.slot[:, 0]]
-    for r in range(1, d + 1):
-        out = out + plan.bary[:, r, None] * vals[plan.slot[:, r]]
-    return out * (1.0 / (1.0 + 2.0 ** (-d)))
+        return out.reshape(T * P, -1).to(vals.dtype) * _kernels.slice_scale(plan.d)
+    return _kernels.slice_untiled(plan, vals)
 
 
 def apply_plan(plan: PermutohedralPlan, src: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """Filter (n, L) values through a prebuilt plan. Linear in `src`;
     `reverse=True` traverses the blur axes in reverse (the transpose)."""
+    launched = _kernels.lattice_splat.launches, _kernels.lattice_slice.launches
     with span("lattice.splat"):
         vals = _splat(plan, src)
     with span("lattice.blur"):
         vals = _blur(plan, vals, reverse)
     with span("lattice.slice"):
-        return _slice(plan, vals)
+        out = _slice(plan, vals)
+    if plan.tile_A is None:
+        count("lattice.apply.untiled", 1)
+        if (_kernels.lattice_splat.launches > launched[0]
+                and _kernels.lattice_slice.launches > launched[1]):
+            count("lattice.apply.kernel", 1)
+    return out
 
 
 # ---------------------------------------------------------------------------

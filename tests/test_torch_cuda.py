@@ -1,5 +1,6 @@
-"""The PyTorch port's CUDA kernels (K1, K1w, K1x, K1xx and K1w_ffma)
-against their plain versions, on a card.
+"""The PyTorch port's CUDA kernels (K1, K1w, K1x, K1xx and K1w_ffma, and
+the lattice apply's splat and slice) against their plain versions, on a
+card.
 
 These tests import neither JAX nor the JAX package, so a GPU machine without
 JAX runs them, skipping the JAX-specific conftest:
@@ -11,7 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from depth_estimation_torch.ops import permutohedral as P
+from depth_estimation_torch.ops.cuda import lattice as LK
 from depth_estimation_torch.ops.cuda import meanfield as T
+from depth_estimation_torch.utils import profiling
 
 
 def _inputs(seed, n, L):
@@ -308,3 +312,217 @@ def test_xxwide_bf16_rescales_where_a_later_chunk_holds_the_max(where):
     at = 3 if where == "first" else 1099
     e0[:, at] -= 30.0 / np.log2(np.e)
     _check((e0, s, c, mu), torch.bfloat16)
+
+
+# the lattice apply's kernels: widths around the teams' lanes (1, 2, 16),
+# fullres128's 128, a width off the 4-value words (129), K1x's 320 and a
+# width of many column passes (1536)
+APPLY_L = [1, 2, 16, 128, 129, 320, 1536]
+
+
+def _lattice_plan(case: str, dtype=torch.float32, n: int = 3000, d: int = 5):
+    """An untiled plan built on the card from a 5-D guide whose first half
+    of pixels share one value, so that each of their d+1 vertices holds more
+    entries than a chunk of the splat ('hot'), or the same guide under a
+    capacity below its occupancy ('overflow')."""
+    rs = np.random.RandomState(20)
+    ref = (rs.randn(n, d) * 1.5).astype(np.float32)
+    ref[: n // 2] = 0.1
+    cap = 128 if case == "overflow" else 8192
+    plan = P.build_plan(torch.from_numpy(ref).to("cuda", dtype), max_vertices=cap)
+    assert (int(plan.num_valid) > cap) == (case == "overflow")
+    if case == "hot":
+        assert int((plan.slot_start[1:] - plan.slot_start[:-1]).max()) > LK.CHUNK
+    return plan
+
+
+def _entry_table(plan):
+    return plan.entry_order, plan.entry_weight, plan.slot_start, plan.chunk_start
+
+
+def _launched(before):
+    return {k: n - before[k] for k, n in LK.launch_counts().items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("L", APPLY_L)
+@pytest.mark.parametrize("case", ["hot", "overflow"])
+def test_lattice_slice_kernel_is_bit_equal_to_plain(case, L, dtype):
+    """The slice kernel sums the d+1 gathered rows in the plain version's
+    order with separately rounded products and sums, so it is bit for bit
+    the plain version on the card, row C (gathered by the overflow entries)
+    included, in the promoted dtype."""
+    _needs_card()
+    plan = _lattice_plan(case)
+    g = torch.Generator(device="cuda").manual_seed(L)
+    vals = torch.randn(plan.capacity + 1, L, generator=g, device="cuda").to(dtype)
+    before = LK.launch_counts()
+    got = LK.lattice_slice(vals, plan.slot, plan.bary, LK.slice_scale(plan.d))
+    torch.cuda.synchronize()
+    assert _launched(before) == {"splat": 0, "slice": 1}
+    want = LK.slice_untiled_reference(plan, vals)
+    assert got.dtype == want.dtype == torch.promote_types(torch.float32, dtype)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("L", APPLY_L)
+@pytest.mark.parametrize("case", ["hot", "overflow"])
+def test_lattice_splat_kernel_is_within_rounding_of_float64(case, L, dtype):
+    """The splat kernel against the plain version in float64. Tolerance: f32
+    sums of a slot's k entries in another order (along the sorted entries,
+    chunk by chunk, the partial sums of chunks that share a slot added in
+    chunk order) err by at most (k+2)·2^-24 of Σ|w·x|, and the sum is
+    rounded once to the output dtype (2^-8 of it in bf16); f64 sums err by
+    (k+2)·2^-53 of Σ|w·x|. Row C stays zero: the overflow entries drop. The
+    order is fixed, so a second launch gives the same bits."""
+    _needs_card()
+    plan = _lattice_plan(case)
+    g = torch.Generator(device="cuda").manual_seed(L + 1)
+    src = torch.randn(plan.bary.shape[0], L, generator=g, device="cuda").to(dtype)
+    before = LK.launch_counts()
+    got = LK.lattice_splat(src, *_entry_table(plan))
+    torch.cuda.synchronize()
+    assert _launched(before) == {"splat": 1, "slice": 0}
+    assert got.dtype == dtype and got.shape == (plan.capacity + 1, L)
+    plan64 = plan._replace(bary=plan.bary.double())
+    want = LK.splat_untiled_reference(plan64, src.double())
+    mag = LK.splat_untiled_reference(plan64, src.double().abs())  # Σ|w·x|: weights are ≥ 0
+    k = torch.zeros(plan.capacity + 1, dtype=torch.float64, device="cuda")
+    k[:-1] = (plan.slot_start[1:] - plan.slot_start[:-1]).double()
+    unit = 2.0 ** -53 if dtype == torch.float64 else 2.0 ** -24
+    tol = (k[:, None] + 2) * unit * mag
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * want.abs()
+    err = (got.double() - want).abs()
+    assert bool((err <= tol).all()), float((err - tol).max())
+    assert not got[plan.capacity].any()
+    again = LK.lattice_splat(src, *_entry_table(plan))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hot", "overflow"])
+def test_lattice_kernels_are_each_others_transpose_in_float64(case):
+    """Through their autograd functions in float64, each kernel's backward
+    is the other kernel: gradcheck holds, row C included (the slice's
+    backward sums the overflow entries into it, the splat's backward reads
+    it as the constant zero it is)."""
+    _needs_card()
+    plan = _lattice_plan(case, torch.float64, n=1200, d=3)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    src = torch.randn(plan.bary.shape[0], 3, generator=g, device="cuda", dtype=torch.float64)
+    vals = torch.randn(plan.capacity + 1, 3, generator=g, device="cuda", dtype=torch.float64)
+    before = LK.launch_counts()
+    assert torch.autograd.gradcheck(lambda x: LK.splat_untiled(plan, x),
+                                    (src.requires_grad_(),), fast_mode=True)
+    assert torch.autograd.gradcheck(lambda v: LK.slice_untiled(plan, v),
+                                    (vals.requires_grad_(),), fast_mode=True)
+    launched = _launched(before)
+    assert launched["splat"] > 0 and launched["slice"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["hot", "overflow"])
+def test_lattice_kernel_gradients_match_the_plain_path(case, dtype):
+    """In f32 and bf16 the kernels' gradients are the plain path's (its
+    autograd through the products, index_add_ and gathers, on the same
+    values in f32) up to f32 sums in another order and, in bf16, one
+    rounding to the input's dtype (2^-8 of it)."""
+    _needs_card()
+    plan = _lattice_plan(case)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    src = torch.randn(plan.bary.shape[0], 16, generator=g, device="cuda").to(dtype)
+    vals = torch.randn(plan.capacity + 1, 16, generator=g, device="cuda").to(dtype)
+    for fn, ref, x in ((LK.splat_untiled, LK.splat_untiled_reference, src),
+                       (LK.slice_untiled, LK.slice_untiled_reference, vals)):
+        xk = x.clone().requires_grad_()
+        out = fn(plan, xk)
+        w = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
+        (out * w).sum().backward()
+        xr = x.float().requires_grad_()
+        (ref(plan, xr) * w.float()).sum().backward()
+        assert xk.grad.dtype == dtype
+        rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+        torch.testing.assert_close(xk.grad.float(), xr.grad, rtol=rtol,
+                                   atol=1e-5 * float(xr.grad.abs().max()))
+
+
+@pytest.mark.cuda
+def test_lattice_kernels_refuse_what_they_do_not_take():
+    """A dtype the kernels do not take raises, and nothing is launched."""
+    _needs_card()
+    plan = _lattice_plan("hot")
+    before = LK.launch_counts()
+    src = torch.zeros(plan.bary.shape[0], 8, dtype=torch.float16, device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        LK.lattice_splat(src, *_entry_table(plan))
+    with pytest.raises(ValueError, match="dtype"):
+        LK.lattice_slice(torch.zeros(plan.capacity + 1, 8, dtype=torch.float16, device="cuda"),
+                         plan.slot, plan.bary, 1.0)
+    with pytest.raises(ValueError, match="dtype"):
+        LK.lattice_slice(torch.zeros(plan.capacity + 1, 8, device="cuda"), plan.slot,
+                         plan.bary.half(), 1.0)
+    pieces = P.build_plan(plan.bary.new_zeros(64, 5).normal_(), max_pieces=512)
+    with pytest.raises(ValueError, match="entry table"):
+        LK.splat_untiled(pieces, torch.zeros(64, 100, device="cuda"))
+    assert _launched(before) == {"splat": 0, "slice": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_plan_takes_the_kernels_on_the_card(dtype):
+    """An untiled apply on the card launches each kernel once, runs no
+    (n, d+1, L) product, `index_add_` or per-r gather in its splat and
+    slice, counts itself as untiled and as run by the kernels, and agrees
+    with the plain versions' apply on the card."""
+    _needs_card()
+    plan = _lattice_plan("hot")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    src = torch.randn(plan.bary.shape[0], 16, generator=g, device="cuda").to(dtype)
+    before = LK.launch_counts()
+    profiling.reset_counters()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = P.apply_plan(plan, src)
+        torch.cuda.synchronize()
+    assert _launched(before) == {"splat": 1, "slice": 1}
+    assert profiling.counter_totals() == {"lattice.apply.untiled": 1, "lattice.apply.kernel": 1}
+    profiling.reset_counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        vals = P._splat(plan, src)
+        P._slice(plan, vals)
+    ops = {e.name for e in prof.events()}
+    assert not ops & {"aten::index_add_", "aten::index", "aten::mul", "aten::add"}, ops
+    plain = LK.slice_untiled_reference(plan, P._blur(plan, LK.splat_untiled_reference(plan, src),
+                                                     False))
+    # f32 splat sums in another order; in bf16 a table value that rounds to
+    # the neighbouring bf16 value moves the output by an ulp of its scale
+    scale = float(plain.abs().max())
+    atol = (1e-5 if dtype == torch.float32 else 2.0 ** -6) * scale
+    torch.testing.assert_close(out, plain, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_untiled_apply_does_not_depend_on_how_the_plan_numbers_its_slots(dtype):
+    """Two plans of one guide that number its vertices otherwise (another
+    capacity, the coordinate sum as the first sort column, another sort
+    mode) filter to the same bits on the card: every splat sum runs over
+    its slot's own entries in their order, chunk by chunk from the slot's
+    start."""
+    _needs_card()
+    rs = np.random.RandomState(21)
+    ref = (rs.randn(3000, 5) * 1.5).astype(np.float32)
+    ref[:1500] = 0.1
+    ref = torch.from_numpy(ref).to("cuda")
+    a = P.build_plan(ref, max_vertices=8192, order_by_sum=False)
+    b = P.build_plan(ref, max_vertices=16384, order_by_sum=True, sort_mode="lex")
+    assert int(a.num_valid) == int(b.num_valid) <= 8192
+    assert not torch.equal(a.slot, b.slot)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    src = torch.randn(3000, 128, generator=g, device="cuda").to(dtype)
+    assert torch.equal(P.apply_plan(a, src), P.apply_plan(b, src))

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from depth_estimation_torch.ops import dense_gaussian as Td
+from depth_estimation_torch.ops.cuda.lattice import CHUNK
 from depth_estimation_torch.ops import permutohedral as T
 from depth_estimation_tpu.ops import permutohedral as J
 
@@ -159,3 +160,67 @@ def test_pieces_not_ported():
     pj = jax.jit(partial(J.build_plan, max_pieces=4096))(jnp.asarray(ref))
     assert plan.piece_weights.shape == (4096, 8)
     assert int(plan.num_pieces) == int(pj.num_pieces)
+
+
+@pytest.mark.parametrize("n,d,kw", [
+    (1024, 5, dict(max_vertices=4096)),
+    (512, 4, dict(max_vertices=256)),  # capacity overflow
+    (300, 3, dict(max_vertices=None)),
+    (512, 5, dict(max_vertices=4096, sort_mode="lex", order_by_sum=True)),
+])
+def test_entry_table_describes_the_slots(n, d, kw):
+    """`entry_order` lists the entries (e = r·n + i) slot by slot, each
+    slot's in increasing order, `entry_weight` their weights, and
+    `slot_start` where each slot's begin: exactly what `slot` says, the
+    overflow entries (slot C, in the order of the vertices they lost) past
+    slot_start[C]; slots past the occupied ones start at N. `chunk_start`
+    numbers the splat kernel's chunks, slot by slot."""
+    ref, _ = _guide(7 + d, n=n, d=d)
+    plan = T.build_plan(torch.from_numpy(ref), **kw)
+    C, N = plan.capacity, n * (d + 1)
+    assert plan.entry_order.dtype == plan.slot_start.dtype == torch.int32
+    assert plan.entry_order.shape == (N,) and plan.slot_start.shape == (C + 1,)
+    slot_e = plan.slot.T.reshape(N).numpy()  # the slot of entry e = r·n + i
+    want = np.argsort(slot_e, kind="stable")
+    got = plan.entry_order.numpy()
+    kept = int(plan.slot_start[C])
+    np.testing.assert_array_equal(got[:kept], want[:kept])
+    np.testing.assert_array_equal(np.sort(got[kept:]), want[kept:])
+    assert plan.entry_weight.dtype == plan.bary.dtype
+    np.testing.assert_array_equal(plan.entry_weight.numpy(),
+                                  plan.bary.T.reshape(N).numpy()[got])
+    np.testing.assert_array_equal(plan.slot_start.numpy(),
+                                  np.searchsorted(slot_e[want], np.arange(C + 1)))
+    # the splat's chunks, slot by slot: ceil(entries / CHUNK) each
+    chunks = -(-np.diff(plan.slot_start.numpy()) // CHUNK)
+    assert plan.chunk_start.dtype == torch.int32
+    np.testing.assert_array_equal(plan.chunk_start.numpy(), np.r_[0, np.cumsum(chunks)])
+    overflow = int(plan.num_valid) > C
+    assert overflow == (kw["max_vertices"] == 256)
+    assert (int(plan.slot_start[C]) < N) == overflow
+
+
+@pytest.mark.parametrize("kind", ["tiled", "lean", "pieces"])
+def test_tiled_lean_and_piece_plans_carry_no_entry_table(kind):
+    ref, _ = _guide(8, n=256)
+    kw = dict(max_pieces=4096) if kind == "pieces" else _plan_kwargs(kind, False)
+    plan = T.build_plan(torch.from_numpy(ref), **kw)
+    assert (plan.entry_order, plan.entry_weight, plan.slot_start, plan.chunk_start) == (None,) * 4
+
+
+@pytest.mark.parametrize("L,vec,team,passes", [
+    (1, 1, 1, 1), (2, 1, 2, 1), (16, 8, 2, 1), (128, 8, 16, 1), (129, 1, 32, 5),
+    (320, 8, 32, 2), (1536, 8, 32, 6)])
+def test_apply_geometry_covers_each_row(L, vec, team, passes):
+    """The lattice kernels' teams: the fewest lanes (a power of two up to
+    32) that cover L at `vec` values a lane (16-byte words where L allows),
+    the rest in column passes."""
+    from depth_estimation_torch.ops.cuda import lattice as K
+
+    g = K.apply_geometry(1000, L, K.VEC if L % K.VEC == 0 else 1)
+    assert (g.vec, g.team, g.passes) == (vec, team, passes)
+    assert g.grid == -(-1000 * team // K.THREADS)
+    assert (g.passes - 1) * g.team * g.vec < L <= g.passes * g.team * g.vec
+    with pytest.raises(ValueError):
+        K.lattice_slice(torch.zeros(5, L), torch.zeros(3, 6, dtype=torch.int64),
+                        torch.zeros(3, 6), 1.0)  # a CPU tensor: the kernel runs on the card
