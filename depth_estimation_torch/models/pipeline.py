@@ -186,8 +186,13 @@ def crf_stereo_infer(left, right, cfg: CRFStereoConfig, device=None) -> dict:
             for m, R in enumerate(rotation_matrices(ref.shape[1], cfg.num_lattices))
         ]
 
-        def filt(x):
-            return sum(apply_plan(p, x) for p in plans) / len(plans)
+        def filt(x, shift_rows=False):
+            out = apply_plan(plans[0], x, shift_rows=shift_rows)
+            if len(plans) == 1:
+                return out
+            for p in plans[1:]:
+                out = out + apply_plan(p, x, shift_rows=shift_rows)
+            return out / len(plans)
 
         def message_fn(Q):
             return filt(Q) - Q
@@ -203,11 +208,22 @@ def crf_stereo_infer(left, right, cfg: CRFStereoConfig, device=None) -> dict:
         raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
     if lattice and cfg.fused_update and cfg.niters > 0:
         # the compat-transformed beliefs C = Q·Mu are the filter input, so
-        # each iteration is one lattice apply and one fused update
+        # each iteration is one lattice apply and one fused update. A bf16
+        # state keeps its rows near 0: the message S is shifted to a minimum
+        # of 0 a row before it is rounded, and the lattice's table every
+        # second blur pass (`apply_plan`'s shift_rows). The softmax, and so
+        # Q, C' and the disparity, ignore a constant a row, while bf16's
+        # error grows with the magnitude: at 994x1482 and 320 labels S
+        # reaches 3.5e6 and its rows' minima 6e4, where a bf16 step is 256
+        narrow = E0_flat.dtype == torch.bfloat16
         C = _matmul_like(torch.softmax(-E0_flat, dim=-1), Mu)
         E = E0_flat
         for _ in range(cfg.niters):
-            S = filt(C).to(E0_flat.dtype).contiguous()
+            S = filt(C, shift_rows=narrow)
+            if narrow:
+                S = torch.sub(S, S.amin(1, keepdim=True), out=torch.empty_like(E0_flat))
+            else:
+                S = S.to(E0_flat.dtype).contiguous()
             E, C = fused_energy_update(E0_flat.contiguous(), S, C, Mu.contiguous())
         Q = torch.softmax(-E, dim=-1).float()
         logits = (-E).float()

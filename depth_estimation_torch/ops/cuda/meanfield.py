@@ -66,6 +66,8 @@ kernel's launches (`fused_energy_update.launches` for K1,
 `fused_energy_update_xxwide.launches` for K1xx,
 `fused_energy_update_wide_ffma.launches` for K1w_ffma); `launch_counts`
 reads them all by kernel name and `zero_launch_counts` sets them to 0.
+`fused_energy_update`, the dispatch, is the span `meanfield.update` and
+counts its calls by route while a profiler records (`utils.profiling`).
 """
 from __future__ import annotations
 
@@ -73,6 +75,8 @@ import ctypes
 from dataclasses import dataclass
 
 import torch
+
+from ...utils.profiling import count, span
 
 __all__ = ["fused_energy_update", "fused_energy_update_wide", "fused_energy_update_xwide",
            "fused_energy_update_xxwide", "fused_energy_update_wide_ffma", "KERNELS",
@@ -117,6 +121,9 @@ WIDE_FFMA_MU_ROWS = 64  # rows of Mu staged in shared memory at once
 WIDE_FFMA_MAX_COL_CHUNK = 64  # columns of Mu staged at once
 WIDE_FFMA_SMEM_TARGET = 100 * 1024  # a block's shared memory, where one q row fits
 MAX_SMEM = 232448  # the H100's opt-in limit a block (227 KB)
+
+# the counter of each route of `fused_energy_update`: a kernel's name, or the plain version
+_ROUTE_COUNTERS = {r: f"meanfield.update.{r}" for r in ("plain", "K1", "K1w", "K1x", "K1xx")}
 
 
 @dataclass(frozen=True)
@@ -449,22 +456,27 @@ def fused_energy_update(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
     """(E, C') from (n, L) E0, S, C and (L, L) Mu, all of one dtype
     (float32 or bfloat16) and on one device. On the card, L in SUPPORTED_L
     launches K1, every other L up to WIDE_MAX_L K1w, L up to XWIDE_MAX_L
-    K1x and a larger L K1xx (`kernel_for`)."""
-    if E0.device.type == "cpu":
-        return fused_energy_update_reference(E0, S, C, Mu)
-    _, L = _checked(E0, S, C, Mu)
-    kernel = kernel_for(L)
-    if kernel != "K1":
-        return {"K1w": fused_energy_update_wide, "K1x": fused_energy_update_xwide,
-                "K1xx": fused_energy_update_xxwide}[kernel](E0, S, C, Mu)
-    for name, x in (("E0", E0), ("S", S), ("C", C), ("Mu", Mu)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    K1x and a larger L K1xx (`kernel_for`); on the CPU the plain version
+    runs. Each call runs inside the span `meanfield.update` and counts 1
+    on `meanfield.update` and on `meanfield.update.<route>` (the kernel's
+    name, or `plain`), while a profiler records."""
+    route = "plain" if E0.device.type == "cpu" else kernel_for(_checked(E0, S, C, Mu)[1])
+    count("meanfield.update", 1)
+    count(_ROUTE_COUNTERS[route], 1)
+    with span("meanfield.update"):
+        if route == "plain":
+            return fused_energy_update_reference(E0, S, C, Mu)
+        if route != "K1":
+            return {"K1w": fused_energy_update_wide, "K1x": fused_energy_update_xwide,
+                    "K1xx": fused_energy_update_xxwide}[route](E0, S, C, Mu)
+        for name, x in (("E0", E0), ("S", S), ("C", C), ("Mu", Mu)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
 
-    def geometry(n, L, elt):
-        g = launch_geometry(n, L, elt)
-        return (g.tile_rows, g.num_tiles, g.grid, g.smem_bytes), 0
-    return _launch(fused_energy_update, "meanfield", E0, S, C, Mu, geometry)
+        def geometry(n, L, elt):
+            g = launch_geometry(n, L, elt)
+            return (g.tile_rows, g.num_tiles, g.grid, g.smem_bytes), 0
+        return _launch(fused_energy_update, "meanfield", E0, S, C, Mu, geometry)
 
 
 def _sms(device: torch.device) -> int:

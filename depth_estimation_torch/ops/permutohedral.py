@@ -691,17 +691,32 @@ def _splat(plan: PermutohedralPlan, src: torch.Tensor) -> torch.Tensor:
     return _kernels.splat_untiled(plan, src)
 
 
-def _blur_pass(vals: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
-    """One axis of the unnormalized [1/2, 1, 1/2] lattice blur."""
+def _blur_pass(vals: torch.Tensor, nbr: torch.Tensor, shift_rows: bool = False) -> torch.Tensor:
+    """One axis of the unnormalized [1/2, 1, 1/2] lattice blur; with
+    `shift_rows` each vertex's row is then shifted to a minimum of 0."""
     M = vals.shape[0] - 1
-    new = vals[:M] + 0.5 * (vals[nbr[:, 0]] + vals[nbr[:, 1]])
-    return torch.cat([new, vals[M:]])
+    if not shift_rows:
+        new = vals[:M] + 0.5 * (vals[nbr[:, 0]] + vals[nbr[:, 1]])
+        return torch.cat([new, vals[M:]])
+    # written into the new table in place of a `cat`'s copy, which pays for
+    # the shift's two passes; the same roundings as above (0.5·y is exact)
+    out = torch.empty_like(vals)
+    out[M:] = vals[M:]
+    new = out[:M]
+    torch.add(vals[:M], vals[nbr[:, 0]] + vals[nbr[:, 1]], alpha=0.5, out=new)
+    new.sub_(new.amin(1, keepdim=True))
+    return out
 
 
-def _blur(plan: PermutohedralPlan, vals: torch.Tensor, reverse: bool) -> torch.Tensor:
+def _blur(plan: PermutohedralPlan, vals: torch.Tensor, reverse: bool,
+          shift_rows: bool = False) -> torch.Tensor:
+    """The d+1 passes; with `shift_rows` the first, third, ... shift the
+    rows. A pass at most doubles a row of non-negative values, so between
+    shifts they grow at most fourfold (a shift every pass, at twice the
+    cost, left the stereo pipeline's maps as far from float64's)."""
     d = plan.d
-    for j in (range(d, -1, -1) if reverse else range(d + 1)):
-        vals = _blur_pass(vals, plan.neighbors[j])
+    for k, j in enumerate(range(d, -1, -1) if reverse else range(d + 1)):
+        vals = _blur_pass(vals, plan.neighbors[j], shift_rows and k % 2 == 0)
     return vals
 
 
@@ -718,14 +733,22 @@ def _slice(plan: PermutohedralPlan, vals: torch.Tensor) -> torch.Tensor:
     return _kernels.slice_untiled(plan, vals)
 
 
-def apply_plan(plan: PermutohedralPlan, src: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+def apply_plan(plan: PermutohedralPlan, src: torch.Tensor, reverse: bool = False,
+               shift_rows: bool = False) -> torch.Tensor:
     """Filter (n, L) values through a prebuilt plan. Linear in `src`;
-    `reverse=True` traverses the blur axes in reverse (the transpose)."""
+    `reverse=True` traverses the blur axes in reverse (the transpose).
+
+    `shift_rows=True` is for a caller that needs the result only up to a
+    constant a row, as a softmax's input: every second blur pass shifts
+    each vertex's row to a minimum of 0 (`_blur`), which adds a constant
+    to each output row (the slice sums the vertices' shifts with the
+    pixel's weights) and keeps the table's values, and so what rounding
+    them to a narrow dtype loses, small."""
     launched = _kernels.lattice_splat.launches, _kernels.lattice_slice.launches
     with span("lattice.splat"):
         vals = _splat(plan, src)
     with span("lattice.blur"):
-        vals = _blur(plan, vals, reverse)
+        vals = _blur(plan, vals, reverse, shift_rows)
     with span("lattice.slice"):
         out = _slice(plan, vals)
     if plan.tile_A is None:

@@ -162,6 +162,35 @@ def test_pieces_not_ported():
     assert int(plan.num_pieces) == int(pj.num_pieces)
 
 
+@pytest.mark.parametrize("kind", ["general", "tiled"])
+def test_shift_rows_adds_a_constant_a_row_and_keeps_bf16_values_small(kind):
+    """`apply_plan(..., shift_rows=True)` shifts each vertex's row to a
+    minimum of 0 after every second blur pass. In float64 its output
+    differs from the plain filter's by a constant a row (to the f32 blocks'
+    rounding on the tiled path); on rows that share a large offset its
+    values stay near 0, so a bf16 table loses far less of them: under half
+    the plain bf16 filter's error, a row's constant aside (measured 19
+    against 61 untiled, 18 against 103 tiled)."""
+    ref, _ = _guide(3)
+    rs = np.random.RandomState(4)
+    src = torch.from_numpy(rs.rand(ref.shape[0], 24) * 10 + rs.rand(ref.shape[0], 1) * 1000)
+    plan = T.build_plan(torch.from_numpy(ref), **_plan_kwargs(kind, False))
+    plain = T.apply_plan(plan, src)
+    shifted = T.apply_plan(plan, src, shift_rows=True)
+    scale = plain.abs().max()
+    gap = plain - shifted
+    assert (gap - gap[:, :1]).abs().max() <= 1e-6 * scale
+    assert shifted.amin(1).min() >= -1e-9 * scale and shifted.amin(1).max() <= 1e-3 * scale
+
+    def off(x, exact):  # the largest error, less the row's mean error
+        e = x.double() - exact
+        return (e - e.mean(1, keepdim=True)).abs().max()
+
+    low = src.to(torch.bfloat16)
+    assert off(T.apply_plan(plan, low, shift_rows=True), shifted) < 0.5 * off(
+        T.apply_plan(plan, low), plain)
+
+
 @pytest.mark.parametrize("n,d,kw", [
     (1024, 5, dict(max_vertices=4096)),
     (512, 4, dict(max_vertices=256)),  # capacity overflow

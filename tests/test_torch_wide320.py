@@ -1,0 +1,150 @@
+"""The wide320 configuration (994x1482 frames at 320 labels, its cell
+`wide320.stream`) at a CPU size: the port's pipeline at 320 labels
+against the benchmark's plain float64 reference, the fused update's span
+and route counters, the per-layer metrics that read K1x's kernels and
+those counters, and the cell as the benchmark's harness finds it.
+
+This file imports neither JAX nor the JAX package."""
+from dataclasses import replace
+from types import SimpleNamespace
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from benchmark import counts
+from benchmark import trace as T
+from benchmark.entries.infer import program_config
+from benchmark.frames import make_pool
+from benchmark.harness import Reading, cell_of, entry_module, load_spec, metric_reader
+from benchmark.reference import stereo
+from depth_estimation_torch.models.pipeline import calibrate_capacity, crf_stereo_infer
+from depth_estimation_torch.ops.cuda.meanfield import fused_energy_update
+from depth_estimation_torch.utils import profiling as P
+
+CELL = "wide320.stream"
+SEED = 2**31 + 17
+H, W = 24, 352  # wider than the 320 labels, so that every disparity has pixels
+# the mean and largest |gap| to the float64 reference, in pixels. The float32
+# pipeline reads 2e-6 to 4e-5 (mean) and 8e-4 to 4e-3 (largest) over three
+# seeds: the cost volume's sums and the lattice's float32 weights. The
+# reference with its state rounded to bf16 reads 0.022 to 1.07 and 5.8 to 35
+# over the same seeds, so either limit refuses a bf16 state.
+MEAN_GAP_PX = 1e-3
+MAX_GAP_PX = 0.05
+
+
+@pytest.fixture(autouse=True)
+def empty_counters():
+    P.reset_counters()
+    yield
+    P.reset_counters()
+
+
+@pytest.fixture(scope="module")
+def cell():
+    return cell_of(load_spec(), CELL)
+
+
+@pytest.fixture(scope="module")
+def small(cell):
+    """The configuration at (H, W), one pair of the cell's traffic, and the
+    program's configuration: untiled, float32 state, fused update."""
+    config = {**cell.config, "height": H, "width": W}
+    t = cell.traffic
+    pool = make_pool(SEED, 1, H, W, t["num_layers"], t["max_disp"], t["contrast"],
+                     torch.device("cpu"))
+    left, right = pool.left[0], pool.right[0]
+    cfg = calibrate_capacity(left, replace(program_config(config), compute_dtype="f32"),
+                             headroom=3.0, tiled=False, device="cpu")
+    assert cfg.fused_update and cfg.tile_px is None and cfg.num_disp == 320
+    return config, left, right, cfg
+
+
+def _gaps(a, ref):
+    gap = (a.double() - ref).abs()
+    return float(gap.mean()), float(gap.max())
+
+
+def test_pipeline_at_320_labels_meets_the_float64_reference(small):
+    config, left, right, cfg = small
+    mine = crf_stereo_infer(left, right, cfg, device="cpu")["disparity"]
+    ref = stereo.disparity(left, right, config)
+    mean, top = _gaps(mine, ref)
+    assert mean <= MEAN_GAP_PX and top <= MAX_GAP_PX, (mean, top)
+    # a bf16 state, in the reference's own arithmetic, is refused
+    mean, top = _gaps(stereo.disparity(left, right, config, state=torch.bfloat16), ref)
+    assert mean > MEAN_GAP_PX and top > MAX_GAP_PX, (mean, top)
+
+
+def test_update_span_and_route_counters_record_only_under_a_profiler(small):
+    config, left, right, cfg = small
+    x = torch.rand(6, 320)
+    fused_energy_update(x, x, x, torch.rand(320, 320))
+    assert P.counter_totals() == {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        crf_stereo_infer(left, right, cfg, device="cpu")
+    n = config["niters"]
+    assert P.span_totals(prof)["meanfield.update"]["count"] == n
+    mine = {k: v for k, v in P.counter_totals().items() if k.startswith("meanfield.")}
+    assert mine == {"meanfield.update": n, "meanfield.update.plain": n}
+
+
+def _kernels(*named):
+    """A made-up device trace of (name, launches, µs each) kernels."""
+    events, t = [], 0.0
+    for name, launches, us in named:
+        for _ in range(launches):
+            events.append((name, t, t + us))
+            t += us + 1.0
+    return T.reduce_events(events, [("aten::add", 0.0, t)], window_s=t * 1e-6)
+
+
+def test_k1x_metrics_read_its_kernels_and_the_route_counters(cell, monkeypatch):
+    assert counts.k1w_bound_s(994 * 1482, 320, 2) == pytest.approx(1407.2e-6, abs=0.05e-6)
+    K1X = "void (anonymous namespace)::fused_energy_update_xwide_kernel<__nv_bfloat16, 64>"
+    MU = "void (anonymous namespace)::fused_energy_update_xwide_tile_mu_kernel<__nv_bfloat16>"
+    K1W = "void (anonymous namespace)::fused_energy_update_wide_kernel<__nv_bfloat16, 128>"
+    trace = _kernels((K1X, 5, 2700.0), (MU, 5, 71.28), (K1W, 5, 9000.0))
+    untiled = SimpleNamespace(program_state=lambda: SimpleNamespace(tile_px=None,
+                                                                    compute_dtype="bf16"))
+    roofline = metric_reader("k1x_roofline_pct")
+    # the Mu pass is counted with the kernel, K1w is not: 1407.2 / 2771.28 µs
+    assert roofline(Reading(cell, untiled, trace, 3, None)) == pytest.approx(50.78, abs=0.01)
+    tiled = SimpleNamespace(program_state=lambda: SimpleNamespace(tile_px=32,
+                                                                  compute_dtype="bf16"))
+    want = 100 * counts.k1w_bound_s(1024 * 1504, 320, 2) / 2771.28e-6
+    assert roofline(Reading(cell, tiled, trace, 3, None)) == pytest.approx(want)
+    assert roofline(Reading(cell, untiled, None, 3, None)) is None
+    assert roofline(Reading(cell, untiled, _kernels((K1W, 5, 1000.0), (MU, 5, 70.0)), 3,
+                            None)) is None
+
+    share = metric_reader("k1x_update_pct")
+    reading = Reading(cell, untiled, trace, 3, None)
+    assert share(reading) is None  # no update counted
+    with monkeypatch.context() as m:
+        m.setattr(P, "counter_totals", lambda: {"meanfield.update": 15,
+                                                "meanfield.update.K1x": 15})
+        assert share(reading) == 100.0
+        assert share(Reading(cell, untiled, None, 3, None)) is None
+        m.setattr(P, "counter_totals", lambda: {"meanfield.update": 10,
+                                                "meanfield.update.K1w": 10})
+        assert share(reading) == 0.0
+        m.delattr(P, "counter_totals")  # a program without counters
+        assert share(reading) is None
+
+
+def test_cell_is_found_with_its_files_and_readers(cell):
+    assert cell.chips == 1
+    assert {k: cell.config[k] for k in ("name", "height", "width", "num_disp")} == {
+        "name": "wide320", "height": 994, "width": 1482, "num_disp": 320}
+    assert cell.config["reduced"] == [] and cell.config["infer"]["compute_dtype"] == "bf16"
+    assert cell.traffic["entry"] == "stream" and cell.traffic["max_disp"] == 318
+    assert entry_module(cell).Entry.__module__ == "benchmark.entries.stream"
+    assert set(cell.limits) == {"disp_gap_px"}
+    assert {m["name"] for m in cell.end_to_end} == {"frames_per_s", "setup_s"}
+    names = {m["name"] for m in cell.per_layer}
+    assert names == {"device_idle_pct.infer", "host_syncs_per_frame", "kernels_per_frame",
+                     "frame_mfu_pct", "lattice_fill_pct", "lattice_kernel_pct",
+                     "k1x_roofline_pct", "k1x_update_pct"}
+    assert all(callable(metric_reader(n)) for n in names)
