@@ -151,7 +151,9 @@ which serves every L above 1024, at 1025, 1088, 1100, 1536, 2048 and 4099
 and at phase M's shape; K1w_ffma, the earlier FFMA design and on no route now, launched directly at
 257, 300 and 1025; the lattice apply's slice bit for bit and splat within a
 bf16 rounding at fullres128's shape, (2088960, 128) bf16 through K's frame's
-plan of 131072 slots, and K's run launches each 5 times) and times them
+plan of 131072 slots, and K's run launches each 5 times; the stereo cost
+volume at K's and L's frames against float64 and its plain version) and
+times them
 (the lattice kernels there beside their byte bounds; K1 also at phase L's rows with 64
 labels; K1w_ffma at fullres128's rows with 24, 128 and 256 labels, as the
 yardstick of the FFMA design K1w replaced there, at phase L's shape beside
@@ -430,9 +432,11 @@ def ptxas_report(K) -> list[dict]:
     (<float or bfloat16, rows a tile, values a lane>, (its threads, 1); and
     its Mu-tiling pass, no bounds), K1xx (<float or bfloat16>, (its
     threads, 1); and its Mu-tiling pass), K1w_ffma (<float or bfloat16>,
-    (256, 2)) and the lattice apply's splat and slice (<float or double
+    (256, 2)), the lattice apply's splat and slice (<float or double
     weights, float, bfloat16 or double values, 1 or 8 values a lane>, 256
-    threads and 2 to 8 blocks an SM), each held to its own register cap,
+    threads and 2 to 8 blocks an SM) and the cost volume (<1 to 4
+    channels, window radius 0 to 8>, (256, 2) to r = 4, (256, 1) above),
+    each held to its own register cap,
     with the dynamic shared
     memory of K1's launch at the flagship row count, of the K1w kernels' at
     fullres128's row count, of K1x's at phase L's and of K1xx's at its
@@ -493,6 +497,17 @@ def ptxas_report(K) -> list[dict]:
                 lattice.get((kind, w, v, vec)), 0, register_cap(256, lattice_blocks(kind, w, v)))
                for kind in ("splat", "slice") for w in "fd" for v in ("f", "13__nv_bfloat16", "d")
                for vec in "18"]
+    # the cost volume: <channels, window radius>, 1 or 3 channels and radii
+    # 0 to 8, (256, 2) up to r = 4 and (256, 1) above, at fullres128's geometry
+    from depth_estimation_torch.ops.cuda.costvolume import costvolume_geometry
+
+    cv = _ptxas("costvolume", r"costvolume_reflect_kernelILi(\d)ELi(\d)E")
+    check(sorted(cv) == [(str(c), str(r)) for c in (1, 3) for r in range(9)],
+          f"costvolume instantiations {sorted(cv)}")
+    wanted += [("costvolume", f"C={c} r={r}", "f32", cv.get((str(c), str(r))),
+                costvolume_geometry(FULL_H, FULL_W, c, FULL_LABELS, 2 * r + 1)["smem"],
+                register_cap(256, 2 if r <= 4 else 1))
+               for c in (1, 3) for r in range(9)]
     rows = []
     for kernel, which, dt, r, dynamic, cap in wanted:
         check(r is not None and "registers" in r and "spill_stores" in r,
@@ -683,6 +698,68 @@ def time_lattice_apply(reps: int = 100, plain_reps: int = 10) -> dict:
     log(f"  lattice plan: {int(plan.num_valid)} of {C} slots, longest slot "
         f"{int((plan.slot_start[1:] - plan.slot_start[:-1]).max())} entries; splat max |kernel - "
         f"plain| {res['splat_max_abs_err']:.3g}")
+    return res
+
+
+def time_cost_volume(reps: int = 100, plain_reps: int = 5) -> dict:
+    """The stereo cost volume at K's frame (1088×1920, 128 labels) and L's
+    (994×1482, 320 labels), window 9, on their synthetic pairs: one kernel
+    launch a call, the same bits twice, the kernel's and the plain
+    version's max |error| against the float64 evaluation, the kernel's at
+    most (81·3) f32 roundings of the largest value and no larger than the
+    plain version's; then the routed call (median of `reps` launches) and
+    the plain version (`plain_reps`), L2 flushed before each, against the
+    byte bound: both images read once and the f32 volume written once."""
+    from depth_estimation_torch.data.synthetic import make_stereo_pair
+    from depth_estimation_torch.ops import costvolume as CV
+    from depth_estimation_torch.ops.cuda import costvolume as CVK
+
+    window, res = 9, {}
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEV)
+    for tag, (h, w, L, max_disp) in {"K": (FULL_H, FULL_W, FULL_LABELS, FULL_MAX_DISP),
+                                     "L": (MID_H, MID_W, MID_LABELS, MID_LABELS - 2)}.items():
+        pair = make_stereo_pair(np.random.RandomState(0), h, w, num_layers=6, max_disp=max_disp)
+        left, right = (torch.as_tensor(a.astype(np.float32), device=DEV) for a in pair[:2])
+        before = CVK.cost_volume_kernel.launches
+        got = CV.cost_volume(left, right, L, window)
+        torch.cuda.synchronize()
+        launched = CVK.cost_volume_kernel.launches - before
+        check(launched == 1, f"{tag}: the kernel launched {launched} times, want 1")
+        check(torch.equal(got, CV.cost_volume(left, right, L, window)),
+              f"{tag}: two kernel runs differ")
+        exact = CV.cost_volume_reference(left.double(), right.double(), L, window)
+        err = float((got.double() - exact).abs().max())
+        plain_err = float((CV.cost_volume_reference(left, right, L, window).double() - exact)
+                          .abs().max())
+        bound = window ** 2 * 3 * 2.0 ** -23 * float(exact.abs().max())
+        del exact
+        check(err <= bound and err <= plain_err,
+              f"{tag}: max |kernel - f64| {err:.3g}, plain {plain_err:.3g}, bound {bound:.3g}")
+        del got
+        torch.cuda.empty_cache()
+        def kernel():
+            return CV.cost_volume(left, right, L, window)
+
+        def plain():
+            return CV.cost_volume_reference(left, right, L, window)
+
+        for _ in range(3):
+            kernel()
+        plain()
+        ms = median_ms(kernel, reps, flush)
+        plain_ms = median_ms(plain, plain_reps, flush)
+        nbytes = (2 * h * w * 3 + h * w * L) * 4
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        g = CVK.costvolume_geometry(h, w, 3, L, window)
+        res[tag] = {"shape": [h * w, L], "window": window, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bytes": nbytes, "bound_share": bound_ms / ms,
+                    "max_abs_err": err, "plain_max_abs_err": plain_err, "err_bound": bound,
+                    "launches": launched, "geometry": g, "reps": reps, "plain_reps": plain_reps}
+        log(f"  time cost volume {tag} ({h}x{w}, L={L}, window {window}): kernel "
+            f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+            f"({nbytes / 1e9:.3f} GB; {100 * bound_ms / ms:.1f}% of it); max |err| vs f64 "
+            f"{err:.3g} (plain {plain_err:.3g}, bound {bound:.3g})")
+        del left, right
     return res
 
 
@@ -1688,11 +1765,13 @@ def run_fullres() -> dict:
         f"tile_bf16={cfg.tile_bf16}")
 
     # the main path: launch counts read from zero just around one run
+    from depth_estimation_torch.ops.cuda import costvolume as CVK
     from depth_estimation_torch.ops.cuda import lattice as LK
 
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     LK.zero_launch_counts()
+    CVK.cost_volume_kernel.launches = 0
     t0 = time.perf_counter()
     out = crf_stereo_infer(left, right, cfg, device=DEV)
     torch.cuda.synchronize()
@@ -1700,10 +1779,12 @@ def run_fullres() -> dict:
     got = launches()
     k1, k1w, ffma = got["K1"], got["K1w"], got["K1w_ffma"]
     lattice = LK.launch_counts()
+    costvolume = CVK.cost_volume_kernel.launches
     peak = torch.cuda.max_memory_allocated()
-    log(f"{tag}: first run {first_s:.2f} s; launches in one run: {got}, lattice {lattice}; peak "
-        f"device memory {peak / 2**30:.2f} GiB")
+    log(f"{tag}: first run {first_s:.2f} s; launches in one run: {got}, lattice {lattice}, "
+        f"cost volume {costvolume}; peak device memory {peak / 2**30:.2f} GiB")
     only_launched("K1w", NITERS)
+    check(costvolume == 1, f"cost volume kernel launched {costvolume} times, want 1")
     # an untiled plan: each apply's splat and slice run the lattice kernels
     check(cfg.tile_px is not None or lattice == {"splat": NITERS, "slice": NITERS},
           f"lattice kernels launched {lattice}, want {NITERS} of each")
@@ -1781,9 +1862,12 @@ def run_fullres() -> dict:
     lc, rc = left[:CROP_H, :CROP_W], right[:CROP_H, :CROP_W]
     ccfg = replace(lattice_cfg(FULL_LABELS, lc, DEV), tile_bf16=False, compute_dtype="f32")
     zero_launches()
+    CVK.cost_volume_kernel.launches = 0
     crop_card = crf_stereo_infer(lc, rc, ccfg, device=DEV)["disparity"]
     torch.cuda.synchronize()
     crop_k1w = only_launched("K1w", NITERS)
+    crop_costvolume = CVK.cost_volume_kernel.launches
+    check(crop_costvolume == 1, f"crop: cost volume kernel launched {crop_costvolume} times")
     t0 = time.perf_counter()
     crop_cpu = crf_stereo_infer(lc, rc, ccfg, device="cpu")["disparity"]
     crop_cpu_s = time.perf_counter() - t0
@@ -1812,7 +1896,8 @@ def run_fullres() -> dict:
             "first_s": first_s, "calibrate_s": calib_s, "tiled": tiled, "tile_u": cfg.tile_u,
             "max_vertices": cfg.max_vertices, "sort_mode": cfg.sort_mode, "num_valid": num_valid,
             "peak_bytes": peak, "mean_max_abs_diff": diffs, "crop_max_abs_diff_cpu": crop_diff,
-            "crop_launches_k1w": crop_k1w}
+            "crop_launches_k1w": crop_k1w, "launches_costvolume": costvolume,
+            "crop_launches_costvolume": crop_costvolume}
 
 
 def run_wide_disparity() -> dict:
@@ -1843,17 +1928,22 @@ def run_wide_disparity() -> dict:
         f"tile_bf16={cfg.tile_bf16}")
 
     # the main path: launch counts read from zero just around one run
+    from depth_estimation_torch.ops.cuda import costvolume as CVK
+
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
+    CVK.cost_volume_kernel.launches = 0
     t0 = time.perf_counter()
     out = crf_stereo_infer(left, right, cfg, device=DEV)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     got = launches()
+    costvolume = CVK.cost_volume_kernel.launches
     peak = torch.cuda.max_memory_allocated()
-    log(f"{tag}: first run {first_s:.2f} s; launches in one run: {got}; peak device memory "
-        f"{peak / 2**30:.2f} GiB")
+    log(f"{tag}: first run {first_s:.2f} s; launches in one run: {got}, cost volume "
+        f"{costvolume}; peak device memory {peak / 2**30:.2f} GiB")
     k1x = only_launched("K1x", NITERS)
+    check(costvolume == 1, f"cost volume kernel launched {costvolume} times, want 1")
     plan = out["plans"][0]
     overflow = 0 if plan.tile_overflow is None else int(plan.tile_overflow)
     check(overflow == 0 and int(plan.num_valid) <= cfg.max_vertices, "capacity overflow")
@@ -1896,9 +1986,12 @@ def run_wide_disparity() -> dict:
     lc, rc = left[:MID_CROP_H, :MID_CROP_W], right[:MID_CROP_H, :MID_CROP_W]
     ccfg = replace(lattice_cfg(MID_LABELS, lc, DEV), tile_bf16=False, compute_dtype="f32")
     zero_launches()
+    CVK.cost_volume_kernel.launches = 0
     crop_card = crf_stereo_infer(lc, rc, ccfg, device=DEV)["disparity"]
     torch.cuda.synchronize()
     crop_k1x = only_launched("K1x", NITERS)
+    crop_costvolume = CVK.cost_volume_kernel.launches
+    check(crop_costvolume == 1, f"crop: cost volume kernel launched {crop_costvolume} times")
     t0 = time.perf_counter()
     crop_cpu = crf_stereo_infer(lc, rc, ccfg, device="cpu")["disparity"]
     crop_cpu_s = time.perf_counter() - t0
@@ -1931,7 +2024,8 @@ def run_wide_disparity() -> dict:
             "calibrate_s": calib_s, "tiled": tiled, "tile_px": cfg.tile_px, "tile_u": cfg.tile_u,
             "max_vertices": cfg.max_vertices, "sort_mode": cfg.sort_mode, "peak_bytes": peak,
             "mean_max_abs_diff": diffs, "crop_max_abs_diff_cpu": crop_diff,
-            "crop_launches_k1x": crop_k1x}
+            "crop_launches_k1x": crop_k1x, "launches_costvolume": costvolume,
+            "crop_launches_costvolume": crop_costvolume}
 
 
 def counting_flips(update, tally: dict, key: str):
@@ -2591,6 +2685,8 @@ def main() -> int:
               for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
     log("the lattice apply's splat and slice kernels against their plain versions:")
     lat = time_lattice_apply()
+    log("the stereo cost volume's kernel against float64 and its plain version:")
+    cvol = time_cost_volume()
 
     a = run_pipeline("A (bench configuration, lean plan, bf16)", 0.5,
                      dict(tile_bf16=True, compute_dtype="bf16"), "packed1", f32=False)
@@ -2753,9 +2849,21 @@ def main() -> int:
                   "a segmented reduce over the entries sorted by slot, each slot cut into chunks "
                   "of 256 entries, a team a chunk, a second pass adding a slot's chunk sums in "
                   "order (deterministic, no atomics)"}
+    costvolume = {
+        "name": "costvolume_reflect", "route": "cuda",
+        "source": "depth_estimation_torch/csrc/costvolume.cu", "replaces": None,
+        "launches_k": k["launches_costvolume"], "launches_crop_k": k["crop_launches_costvolume"],
+        "launches_l": wd["launches_costvolume"], "launches_crop_l": wd["crop_launches_costvolume"],
+        **cvol,
+        "design": "a block a tile of 1024/D - 2r columns, a strip of rows and D <= 32 labels: "
+                  "the haloed left tile and right strip staged in shared memory 2r + 1 rows at a "
+                  "time, a thread a haloed column and 4 labels forming raw costs into a ring of "
+                  "registers and summing the window's rows there, a thread a run of 8 pixels "
+                  "summing its columns from shared memory, scaled and stored as 128-byte lines "
+                  "of 16-byte words (f32 sums in one fixed order, deterministic)"}
     log(f"chip_smoke: the whole script took {time.perf_counter() - t_start:.1f} s")
     log(card_line())
-    log(json.dumps({"kernels": [k1, k1w, k1x, k1xx, lattice]}))
+    log(json.dumps({"kernels": [k1, k1w, k1x, k1xx, lattice, costvolume]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
     return 0

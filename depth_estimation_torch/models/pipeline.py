@@ -96,8 +96,9 @@ def unblocked(flat: torch.Tensor, h: int, w: int, B: int) -> torch.Tensor:
 
 @span("stereo.unary")
 def stereo_unary(left: torch.Tensor, right: torch.Tensor, cfg: CRFStereoConfig) -> torch.Tensor:
-    """Unary energies (h, w, L): raw window sums of the matching cost."""
-    return cfg.unary_scale * cost_volume(left, right, cfg.num_disp, cfg.window_size)
+    """Unary energies (h, w, L): raw window sums of the matching cost,
+    times `unary_scale` (on the card, in the kernel's store)."""
+    return cost_volume(left, right, cfg.num_disp, cfg.window_size, scale=cfg.unary_scale)
 
 
 def calibrate_capacity(

@@ -5,6 +5,15 @@ Disparity d means pixel (i, j) of the left image matches (i, j − d) of the
 right; out-of-frame comparisons see zeros; costs are summed over a ws × ws
 window, with scipy's reflect boundary (`agg_mode='reflect'`) or a plain
 zero-padded window sum (`agg_mode='zero'`).
+
+`cost_volume` routes by what the call shows: float32 CUDA (h, w, c) images
+with the absolute difference, the reflect boundary, an odd window and no
+gradient take one launch of the hand-written kernel (`ops.cuda.costvolume`),
+which also folds in the scale, and which raises for what it does not take
+(more than 17 pixels of window, channels other than 1 or 3); every other
+call takes the plain version, `cost_volume_reference`. Each call counts
+`costvolume.calls`, and each the kernel serves `costvolume.kernel`
+(recorded only under a profiler).
 """
 from __future__ import annotations
 
@@ -13,13 +22,16 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import count
 from .boxfilter import box_filter
+from .cuda import costvolume as _kernel
 
 __all__ = [
     "absolute_difference",
     "squared_difference",
     "neg_product",
     "cost_volume",
+    "cost_volume_reference",
     "disparity_badness",
     "disparity_estimate",
     "expected_disparity",
@@ -77,9 +89,34 @@ def cost_volume(
     window_size: int = 9,
     criterion: Callable = absolute_difference,
     agg_mode: str = "reflect",
+    scale: float = 1.0,
 ) -> torch.Tensor:
-    """(h, w, num_disp) aggregated matching cost (the CRF unaries E0) of an
-    (h, w, c) rectified pair."""
+    """`scale` × the (h, w, num_disp) aggregated matching cost (the CRF
+    unaries E0) of an (h, w, c) rectified pair: on the card one launch of
+    the kernel where it takes the call (see the module's docstring), else
+    the plain version."""
+    count("costvolume.calls", 1)
+    if (left.device.type == right.device.type == "cuda"
+            and left.dtype == right.dtype == torch.float32 and left.dim() == 3
+            and criterion is absolute_difference and agg_mode == "reflect"
+            and window_size % 2 == 1 and not (left.requires_grad or right.requires_grad)):
+        count("costvolume.kernel", 1)
+        return _kernel.cost_volume_kernel(left.contiguous(), right.contiguous(), num_disp,
+                                          window_size, scale)
+    vol = cost_volume_reference(left, right, num_disp, window_size, criterion, agg_mode)
+    return vol if scale == 1 else scale * vol
+
+
+def cost_volume_reference(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    num_disp: int,
+    window_size: int = 9,
+    criterion: Callable = absolute_difference,
+    agg_mode: str = "reflect",
+) -> torch.Tensor:
+    """The plain PyTorch cost volume: the per-disparity costs stacked into
+    the (h, w, num_disp) volume, then the window sums by cumsum."""
     h, w, c = left.shape
     padded = F.pad(right, (0, 0, num_disp, 0))  # zeros left of column 0
     costs = [

@@ -1,6 +1,6 @@
-"""The PyTorch port's CUDA kernels (K1, K1w, K1x, K1xx and K1w_ffma, and
-the lattice apply's splat and slice) against their plain versions, on a
-card.
+"""The PyTorch port's CUDA kernels (K1, K1w, K1x, K1xx and K1w_ffma, the
+lattice apply's splat and slice, and the stereo cost volume) against their
+plain versions, on a card.
 
 These tests import neither JAX nor the JAX package, so a GPU machine without
 JAX runs them, skipping the JAX-specific conftest:
@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from depth_estimation_torch.ops import costvolume as CV
 from depth_estimation_torch.ops import permutohedral as P
+from depth_estimation_torch.ops.cuda import costvolume as CVK
 from depth_estimation_torch.ops.cuda import lattice as LK
 from depth_estimation_torch.ops.cuda import meanfield as T
 from depth_estimation_torch.utils import profiling
@@ -526,3 +528,123 @@ def test_untiled_apply_does_not_depend_on_how_the_plan_numbers_its_slots(dtype):
     g = torch.Generator(device="cuda").manual_seed(8)
     src = torch.randn(3000, 128, generator=g, device="cuda").to(dtype)
     assert torch.equal(P.apply_plan(a, src), P.apply_plan(b, src))
+
+
+# the stereo cost volume: (h, w, c, labels, window), off every tile size
+# (24 columns at 32 labels, strips of 256 rows, chunks of up to 32 labels,
+# runs of 8 columns); more labels than columns; a window's radius at or past
+# the height (and the width), where the symmetric pad keeps reflecting; two
+# strips, the second of one row (257) inside the window
+COST_VOLUME_CASES = [(37, 53, 3, 16, 9), (70, 101, 3, 128, 9), (65, 25, 1, 100, 3),
+                     (9, 20, 3, 100, 9), (3, 40, 3, 16, 9), (5, 3, 1, 1, 11),
+                     (130, 49, 3, 320, 11), (33, 47, 1, 128, 1), (66, 97, 3, 320, 9),
+                     (40, 30, 1, 16, 3), (17, 150, 3, 1, 9), (300, 41, 3, 100, 9),
+                     (257, 30, 1, 16, 11)]
+
+
+def _cv_pair(seed, h, w, c):
+    rs = np.random.RandomState(seed)
+    return [torch.from_numpy(rs.rand(h, w, c).astype(np.float32)).to("cuda") for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1.0, 2.5])
+@pytest.mark.parametrize("h,w,c,L,window", COST_VOLUME_CASES)
+def test_cost_volume_kernel_matches_float64(h, w, c, L, window, scale):
+    """One launch a call; within (window² c) f32 roundings of the volume's
+    largest value of the float64 evaluation, as close to it as the plain
+    version is plus that; the same bits twice."""
+    _needs_card()
+    left, right = _cv_pair(h * w + L, h, w, c)
+    before = CVK.cost_volume_kernel.launches
+    got = CV.cost_volume(left, right, L, window, scale=scale)
+    torch.cuda.synchronize()
+    assert CVK.cost_volume_kernel.launches == before + 1
+    assert got.shape == (h, w, L) and got.dtype == torch.float32 and got.is_contiguous()
+    exact = scale * CV.cost_volume_reference(left.double(), right.double(), L, window)
+    bound = window ** 2 * c * 2.0 ** -23 * float(exact.abs().max())
+    err = float((got.double() - exact).abs().max())
+    assert err <= bound, (err, bound)
+    plain = CV.cost_volume_reference(left, right, L, window)
+    plain = plain if scale == 1 else scale * plain
+    assert float((got - plain).double().abs().max()) <= bound + float(
+        (plain.double() - exact).abs().max())
+    assert torch.equal(got, CV.cost_volume(left, right, L, window, scale=scale))
+
+
+@pytest.mark.cuda
+def test_cost_volume_kernel_takes_views_made_contiguous():
+    _needs_card()
+    big_l, big_r = _cv_pair(5, 40, 120, 3)
+    left, right = big_l[:, ::2], big_r.transpose(0, 1).contiguous().transpose(0, 1)[:, 1::2]
+    assert not left.is_contiguous() and not right.is_contiguous()
+    before = CVK.cost_volume_kernel.launches
+    got = CV.cost_volume(left, right, 24, 9)
+    assert CVK.cost_volume_kernel.launches == before + 1
+    assert torch.equal(got, CVK.cost_volume_kernel(left.contiguous(), right.contiguous(), 24, 9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["float64", "squared", "neg_product", "zero", "even window",
+                                  "requires grad"])
+def test_cost_volume_kernel_leaves_other_calls_to_the_plain_version(case):
+    _needs_card()
+    left, right = _cv_pair(6, 21, 30, 3)
+    kw = {"squared": {"criterion": CV.squared_difference},
+          "neg_product": {"criterion": CV.neg_product}, "zero": {"agg_mode": "zero"}}.get(case, {})
+    window = 8 if case == "even window" else 5
+    if case == "float64":
+        left, right = left.double(), right.double()
+    if case == "requires grad":
+        left.requires_grad_(True)
+    before = CVK.cost_volume_kernel.launches
+    got = CV.cost_volume(left, right, 12, window, scale=1.5, **kw)
+    assert CVK.cost_volume_kernel.launches == before
+    assert torch.equal(got, 1.5 * CV.cost_volume_reference(left, right, 12, window, **kw))
+    assert got.requires_grad == (case == "requires grad")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,window", [(5, 5), (2, 5), (4, 9), (3, 19), (1, 21)])
+def test_cost_volume_raises_for_what_the_kernel_does_not_take(c, window):
+    """A call the route gives the kernel raises where the kernel is not
+    built for it (channels other than 1 or 3, windows over 17): it does
+    not fall back to the plain version."""
+    _needs_card()
+    left, right = _cv_pair(6, 21, 30, c)
+    before = CVK.cost_volume_kernel.launches
+    with pytest.raises(ValueError, match="takes"):
+        CV.cost_volume(left, right, 12, window)
+    assert CVK.cost_volume_kernel.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,L,window,labels", [
+    (1088, 1920, 3, 128, 9, 32), (994, 1482, 3, 320, 9, 32), (288, 384, 3, 16, 9, 16),
+    (5, 3, 1, 1, 11, 4), (64, 64, 1, 7, 17, 8), (64, 64, 3, 2, 11, 4)])
+def test_cost_volume_geometry(h, w, c, L, window, labels):
+    """The fewest labels a block (4 to 32, a power of two) that cover L and
+    whose shared memory fits (a wider window takes more labels and so a
+    narrower tile); the block's 256 threads are its haloed columns times
+    its label quads."""
+    _needs_card()
+    g = CVK.costvolume_geometry(h, w, c, L, window)
+    r = window // 2
+    assert g["labels"] == labels and g["strip"] == 256 and g["smem"] <= 232448
+    assert (g["tile_w"] + 2 * r) * (g["labels"] // 4) == 256
+    with pytest.raises(ValueError, match="tiles"):
+        CVK.costvolume_geometry(10, 16 * 65536, c, 128, 17)
+
+
+@pytest.mark.cuda
+def test_cost_volume_counts_its_calls_and_the_kernels():
+    _needs_card()
+    left, right = _cv_pair(7, 16, 24, 3)
+    profiling.reset_counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        CV.cost_volume(left, right, 8, 3)
+        CV.cost_volume(left.double(), right.double(), 8, 3)
+        CV.cost_volume(left, right, 8, 3, agg_mode="zero")
+    counted = profiling.counter_totals()
+    profiling.reset_counters()
+    assert counted == {"costvolume.calls": 3, "costvolume.kernel": 1}

@@ -284,11 +284,13 @@ def test_build_is_keyed_by_source_and_out_of_git():
     assert target.parent == build.BUILD_DIR and target.name.startswith("libmeanfield-")
     ignored = (REPO / ".gitignore").read_text().splitlines()
     assert "depth_estimation_torch/_build/" in ignored
-    assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == ["lattice_apply", "meanfield",
+    assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == ["costvolume", "lattice_apply",
+                                                               "meanfield",
                                                                "meanfield_wide",
                                                                "meanfield_wide_ffma",
                                                                "meanfield_xwide",
                                                                "meanfield_xxwide"]
+    assert build._target("costvolume").name.startswith("libcostvolume-")
     assert build._target("lattice_apply").name.startswith("liblattice_apply-")
     assert build._target("meanfield_wide").name.startswith("libmeanfield_wide-")
     assert build._target("meanfield_wide_ffma").name.startswith("libmeanfield_wide_ffma-")

@@ -173,11 +173,12 @@ def test_pipeline_records_each_layer(num_lattices, tiled):
                       "lattice.slice": niters * k}
     plans = out["plans"]
     assert len(plans) == k and (plans[0].slot is None) == tiled
-    # each untiled apply is counted; on the CPU none runs the kernels
+    # each untiled apply and the cost volume's call are counted; on the CPU
+    # none runs the kernels
     untiled = {} if tiled else {"lattice.apply.untiled": niters * k}
     assert P.counter_totals() == {
         "lattice.vertices": sum(int(p.num_valid) for p in plans),
-        "lattice.capacity": sum(p.capacity for p in plans), **untiled}
+        "lattice.capacity": sum(p.capacity for p in plans), "costvolume.calls": 1, **untiled}
     for name in counts:
         want = (None,) if name == "stereo.frame" else ("stereo.frame",)
         assert _span_parents(prof, name) == set(want)

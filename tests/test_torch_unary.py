@@ -121,3 +121,76 @@ def test_metrics_match_jax():
     np.testing.assert_allclose(float(Tm.bad_pixel_ratio(tp, tg, 2.0)),
                                float(Jm.bad_pixel_ratio(jp, jg, 2.0)), rtol=1e-6)
     np.testing.assert_array_equal(Tm.valid_mask(tg).numpy(), np.asarray(Jm.valid_mask(jg)))
+
+
+# the cost volume's routes: on the CPU every call takes the plain version
+
+
+@pytest.mark.parametrize("agg_mode,window,criterion,c", [
+    ("reflect", 9, Tcv.absolute_difference, 3), ("reflect", 1, Tcv.absolute_difference, 3),
+    ("reflect", 4, Tcv.absolute_difference, 3), ("reflect", 5, Tcv.squared_difference, 3),
+    ("zero", 3, Tcv.absolute_difference, 3), ("reflect", 11, Tcv.neg_product, 3),
+    ("reflect", 3, Tcv.absolute_difference, 1), ("reflect", 9, Tcv.absolute_difference, 5),
+    ("reflect", 19, Tcv.absolute_difference, 3), ("reflect", 41, Tcv.absolute_difference, 2)])
+def test_cost_volume_on_the_cpu_is_the_plain_version_bit_for_bit(agg_mode, window, criterion, c):
+    """Every CPU call, shapes the card's kernel refuses included (5 or 2
+    channels, windows of 19 and 41, past the frame's sides)."""
+    rs = np.random.RandomState(3)
+    left, right = (torch.from_numpy(rs.rand(17, 23, c).astype(np.float32)) for _ in range(2))
+    got = Tcv.cost_volume(left, right, 9, window, criterion, agg_mode)
+    assert torch.equal(got, Tcv.cost_volume_reference(left, right, 9, window, criterion,
+                                                      agg_mode))
+    scaled = Tcv.cost_volume(left, right, 9, window, criterion, agg_mode, scale=0.3)
+    assert torch.equal(scaled, 0.3 * got)
+
+
+def test_stereo_unary_scales_the_plain_version():
+    from depth_estimation_torch.models.pipeline import CRFStereoConfig, stereo_unary
+
+    left, right = (torch.from_numpy(a) for a in _pair(4, 19, 26))
+    for scale in (1.0, 2.5, 0.1):
+        cfg = CRFStereoConfig(num_disp=7, window_size=5, unary_scale=scale)
+        want = scale * Tcv.cost_volume_reference(left, right, 7, 5)
+        assert torch.equal(stereo_unary(left, right, cfg), want)
+
+
+def test_cost_volume_counts_its_calls_and_no_kernel_on_the_cpu():
+    from torch.profiler import ProfilerActivity, profile
+
+    from depth_estimation_torch.models.pipeline import CRFStereoConfig, stereo_unary
+    from depth_estimation_torch.utils import profiling
+
+    left, right = (torch.from_numpy(a) for a in _pair(5, 12, 16))
+    profiling.reset_counters()
+    Tcv.cost_volume(left, right, 4, 3)  # no profiler: nothing counted
+    assert profiling.counter_totals() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        Tcv.cost_volume(left, right, 4, 3)
+        stereo_unary(left, right, CRFStereoConfig(num_disp=4, window_size=3))
+    counted = profiling.counter_totals()
+    profiling.reset_counters()
+    assert counted.get("costvolume.calls") == 2 and "costvolume.kernel" not in counted
+
+
+@pytest.mark.parametrize("case", ["cpu", "float64", "2-d", "shapes differ", "even window",
+                                  "no labels"])
+def test_cost_volume_kernel_takes_no_cpu_tensor(case):
+    """On the CPU the wrapper refuses every call, well-formed or not, before
+    it builds or launches anything."""
+    from depth_estimation_torch.ops.cuda import costvolume as CK
+
+    left, right = (torch.from_numpy(a) for a in _pair(6, 8, 10))
+    num_disp, window = 4, 3
+    if case == "float64":
+        left, right = left.double(), right.double()
+    elif case == "2-d":
+        left, right = left[..., 0], right[..., 0]
+    elif case == "shapes differ":
+        right = right[:, 1:]
+    elif case == "even window":
+        window = 4
+    elif case == "no labels":
+        num_disp = 0
+    with pytest.raises(ValueError, match="CUDA images"):
+        CK.cost_volume_kernel(left, right, num_disp, window)
+    assert CK.cost_volume_kernel.launches == 0

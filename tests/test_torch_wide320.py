@@ -146,5 +146,6 @@ def test_cell_is_found_with_its_files_and_readers(cell):
     names = {m["name"] for m in cell.per_layer}
     assert names == {"device_idle_pct.infer", "host_syncs_per_frame", "kernels_per_frame",
                      "frame_mfu_pct", "lattice_fill_pct", "lattice_kernel_pct",
-                     "k1x_roofline_pct", "k1x_update_pct"}
+                     "k1x_roofline_pct", "k1x_update_pct", "unary_kernel_pct",
+                     "unary_roofline_pct"}
     assert all(callable(metric_reader(n)) for n in names)
