@@ -30,7 +30,7 @@ occupancy go to standard error as one JSON object.
 
     python bench_torch.py [--device cuda|cpu] [--labels 16] [--niters 5]
         [--h 288 --w 384] [--reps 10] [--pair pair.npz] [--dense-baseline]
-        [--headroom 3] [--pieces {0,1}] [--order-by-sum {0,1}]
+        [--headroom 3] [--order-by-sum {0,1}]
         [--tiled {0,1,2}] [--tile-px 32] [--fused {0,1}] [--dtype {f32,bf16}]
         [--sort-mode auto|packed1|packed2|lex]
 """
@@ -67,8 +67,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--headroom", type=float, default=3.0,
                     help="capacity headroom over the measured lattice occupancy")
-    ap.add_argument("--pieces", type=int, default=0, choices=(0, 1),
-                    help="the piece-splat tables (default 0: the entry-wise splat)")
     ap.add_argument("--order-by-sum", type=int, default=0, choices=(0, 1),
                     help="prepend the coordinate-sum column to the plan's sorts")
     ap.add_argument("--tiled", type=int, default=2, choices=(0, 1, 2),
@@ -112,8 +110,8 @@ def bench_config(args: argparse.Namespace, left: torch.Tensor, dev) -> CRFStereo
     on `left` as `bench.py` calibrates them."""
     cfg = CRFStereoConfig(num_disp=args.labels, niters=args.niters, backend="lattice",
                           order_by_sum=bool(args.order_by_sum))
-    cfg = calibrate_capacity(left, cfg, headroom=args.headroom, pieces=bool(args.pieces),
-                             tiled=bool(args.tiled), tile_px=args.tile_px, device=dev)
+    cfg = calibrate_capacity(left, cfg, headroom=args.headroom, tiled=bool(args.tiled),
+                             tile_px=args.tile_px, device=dev)
     return replace(cfg, tile_bf16=args.tiled == 2, sort_mode=args.sort_mode or cfg.sort_mode,
                    compute_dtype=args.dtype, fused_update=bool(args.fused))
 
@@ -174,12 +172,12 @@ def main(argv=None) -> dict:
             "device": device_name(dev),
             "niters": args.niters,
             "max_vertices": cfg.max_vertices,
-            "max_pieces": cfg.max_pieces,
+            "max_pieces": None,  # bench.py's key: the port has no piece splat
             "order_by_sum": cfg.order_by_sum,
             "tile_px": cfg.tile_px,
             "tile_u": cfg.tile_u if cfg.tile_px else None,
             "sort_mode": cfg.sort_mode,
-            "unroll": cfg.unroll,  # None: an eager loop has nothing to unroll
+            "unroll": None,  # bench.py's key: an eager loop has nothing to unroll
             "vs_baseline_source": vs_source,
         },
     }

@@ -26,9 +26,6 @@ points and the benchmark programs:
      against the port's CPU run of the same step, then timed and profiled;
   D. three steps of `train_tsukuba_crf` (random guidance, an 8-D guide,
      the general untiled plan at the default capacity) on B's pair;
-  E. B's pair untiled in float32 with the piece-splat tables
-     (`calibrate_capacity(pieces=True)`), held against the same run
-     without them;
   F. `StereoServer` in A's configuration on 8 pairs (pair i from
      `RandomState(i)`, contrast 0.5), calibrated on the first frame: each
      frame against `crf_stereo_infer` with the server's config, vmap mode
@@ -88,9 +85,8 @@ points and the benchmark programs:
      deterministic algorithms the same run with K1x's plain version in its
      place within 0.1 px (mean) and, in float32, the unfused loop within
      5e-3 px; its 96x384 crop (wider than L) in float32 against the port's
-     CPU run (5e-3 px); the calibration, the warm pipeline with K1x and
-     with K1w_ffma launched in its place (median of 3 each), one profile
-     and the peak device memory are printed;
+     CPU run (5e-3 px); the calibration, the warm pipeline (median of 3),
+     one profile and the peak device memory are printed;
   M. K1xx's route inside the pipeline, a check of the route and not a
      user's configuration (no configuration of the repo has more than 1024
      labels): a 160x1280 synthetic pair (6 layers, disparities to 1098) at
@@ -102,8 +98,8 @@ points and the benchmark programs:
      that K1xx rounds otherwise than its plain version in the run, the
      plain version with that share of its C' values moved by one bf16 ulp
      (two seeds), and with C' summed in float64 and rounded once; the warm
-     pipeline with K1xx and with K1w_ffma launched in its place (median of
-     3 each), K1xx's share of one profile and the peak device memory;
+     pipeline (median of 3), K1xx's share of one profile and the peak device
+     memory;
   N. the entry points of `depth_estimation_torch.tools`, called as a user
      calls them: `profile_stages --fused-update 1 --pair` on A's, K's and
      L's own pairs (saved to a temporary .npz) with their phases'
@@ -148,18 +144,16 @@ fails), holds each kernel against its plain PyTorch version on the card
 and 256 labels, at the edges of its padded widths and at fullres128's
 shape; K1x at 257, 288, 300, 320, 384, 512, 1000 and 1024 labels; K1xx,
 which serves every L above 1024, at 1025, 1088, 1100, 1536, 2048 and 4099
-and at phase M's shape; K1w_ffma, the earlier FFMA design and on no route now, launched directly at
-257, 300 and 1025; the lattice apply's slice bit for bit and splat within a
+and at phase M's shape; the lattice apply's slice bit for bit and splat within a
 bf16 rounding at fullres128's shape, (2088960, 128) bf16 through K's frame's
 plan of 131072 slots, and K's run launches each 5 times; the stereo cost
 volume at K's and L's frames against float64 and its plain version) and
 times them
 (the lattice kernels there beside their byte bounds; K1 also at phase L's rows with 64
-labels; K1w_ffma at fullres128's rows with 24, 128 and 256 labels, as the
-yardstick of the FFMA design K1w replaced there, at phase L's shape beside
-K1x and at (393216, 1536) beside K1xx; K1xx also at phase L's shape),
-counts the kernels' launches in
-every phase (A, B, E and F launch K1 5 times a frame, K launches K1w 5
+labels; K1w at fullres128's rows with 24, 128 and 256 labels; K1x also at
+fullres128's rows with 256 labels; K1xx at (393216, 1536) and at phase L's
+shape), counts the kernels' launches in
+every phase (A, B and F launch K1 5 times a frame, K launches K1w 5
 times, L K1x 5 times, M K1xx 5 times, N's three stage splits K1, K1w and
 K1x 5 times a pipeline call, O's bench and middlebury64 K1 5 times a
 call, its fullres128 K1w 5 times, its serving_batched K1 40 times a batch,
@@ -200,7 +194,6 @@ BF16_MEAN_TOL = 0.1  # px: mean |Δdisparity| where the two sides round in bf16
 # input one rounding off differ by 5-7e-6 px mean, while their max (up to
 # 0.008 px at a few pixels) exceeds DISP_ATOL (N4)
 F32_MEAN_TOL = 1e-4
-PIECES_ATOL = 1e-4  # px: pieces only reorder float32 splat sums
 # C's first step, card against CPU, as fractions of the CPU's magnitude. The
 # loss, and the loss and every gradient of the same step with float32
 # incidence blocks: f32 sums taken in another order. The gradients with
@@ -255,17 +248,14 @@ CROP_H, CROP_W = 192, 256
 # the label counts at which K1w is held against its plain version, and the
 # edges of its padded widths (32, 64, 128, 256) and of its limit; K1x's
 # (XWIDE_MAX_L, 1024, is checked too); K1xx's, on the flagship's rows and
-# 7 fewer, and at XXWIDE_ODD_L labels on as many rows; K1w_ffma's, launched
-# directly (no L reaches it through the dispatch)
+# 7 fewer, and at XXWIDE_ODD_L labels on as many rows
 WIDE_CHECK_L = (3, 12, 24, 100, 128, 256)
 WIDE_EDGE_L = (1, 17, 33, 65, 127, 129, 255)
 XWIDE_CHECK_L = (257, 288, 300, 320, 384, 512, 1000)
 XXWIDE_CHECK_L = (1025, 1088, 1100, 1536, 2048)
 XXWIDE_ODD_L = 4099
-FFMA_CHECK_L = (257, 300, 1025)
-# K1xx timed at a 512x768 frame's rows at 1536 labels, beside K1w_ffma
-# launched directly (about 450 ms a launch there: it and the plain version
-# are timed over XX_SLOW_REPS launches)
+# K1xx timed at a 512x768 frame's rows at 1536 labels, its plain version
+# over XX_SLOW_REPS launches
 XX_N, XX_LABELS, XX_SLOW_REPS = 512 * 768, 1536, 20
 # L: wide disparities, a half-size Middlebury 2014 frame (tools/bench_suite.py's
 # middlebury64 size, 994x1482) at the 320 labels that Jadeplant's ndisp=640
@@ -357,8 +347,8 @@ def counters() -> dict:
 
 
 def zero_launches() -> None:
-    """Set the launch counts of the fused-update kernels (K1, K1w, K1x, K1xx
-    and K1w_ffma) to 0."""
+    """Set the launch counts of the fused-update kernels (K1, K1w, K1x and
+    K1xx) to 0."""
     from depth_estimation_torch.ops.cuda import meanfield as K
 
     K.zero_launch_counts()
@@ -382,10 +372,9 @@ def only_launched(name: str, want: int) -> int:
 
 def k1_launches() -> int:
     """K1's launches since `zero_launches`; a path at the repo's label
-    counts of 8 to 64 must have launched K1w, K1x, K1xx and K1w_ffma no
-    time."""
+    counts of 8 to 64 must have launched K1w, K1x and K1xx no time."""
     wrappers = counters()
-    for name in ("K1w", "K1x", "K1xx", "K1w_ffma"):
+    for name in ("K1w", "K1x", "K1xx"):
         check(wrappers[name].launches == 0, f"{name} launched {wrappers[name].launches} times")
     return wrappers["K1"].launches
 
@@ -431,14 +420,13 @@ def ptxas_report(K) -> list[dict]:
     4)), K1w (<float or bfloat16, LP>, its bounds from `wide_config`), K1x
     (<float or bfloat16, rows a tile, values a lane>, (its threads, 1); and
     its Mu-tiling pass, no bounds), K1xx (<float or bfloat16>, (its
-    threads, 1); and its Mu-tiling pass), K1w_ffma (<float or bfloat16>,
-    (256, 2)), the lattice apply's splat and slice (<float or double
+    threads, 1); and its Mu-tiling pass), the lattice apply's splat and slice (<float or double
     weights, float, bfloat16 or double values, 1 or 8 values a lane>, 256
     threads and 2 to 8 blocks an SM) and the cost volume (<1 to 4
     channels, window radius 0 to 8>, (256, 2) to r = 4, (256, 1) above),
     each held to its own register cap,
     with the dynamic shared
-    memory of K1's launch at the flagship row count, of the K1w kernels' at
+    memory of K1's launch at the flagship row count, of K1w's at
     fullres128's row count, of K1x's at phase L's and of K1xx's at its
     timed shape."""
     dtname = {"f": "f32", "13__nv_bfloat16": "bf16"}
@@ -447,7 +435,6 @@ def ptxas_report(K) -> list[dict]:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     k1 = _ptxas("meanfield", r"fused_energy_update_kernelILi(\d+)E(f|13__nv_bfloat16)E")
     k1w = _ptxas("meanfield_wide", r"fused_energy_update_wide_kernelI(f|13__nv_bfloat16)Li(\d+)E")
-    ffma = _ptxas("meanfield_wide_ffma", r"fused_energy_update_wide_ffma_kernelI(f|13__nv_bfloat16)E")
     k1x = _ptxas("meanfield_xwide",
                  r"fused_energy_update_xwide_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
     tile = _ptxas("meanfield_xwide",
@@ -480,9 +467,6 @@ def ptxas_report(K) -> list[dict]:
         wanted.append(("K1xx", "any L", dtname[m], k1xx.get((m,)), g.smem_bytes,
                        register_cap(g.threads, 1)))
         wanted.append(("K1xx tile_mu", "any L", dtname[m], tile_xx.get((m,)), 0, 255))
-    wanted += [("K1w_ffma", "any L", dtname[m], ffma.get((m,)),
-                K.wide_ffma_geometry(n_full, FULL_LABELS).smem_bytes, register_cap(256, 2))
-               for m in dtname]
     # the lattice apply's kernels: <weights, values, values a lane>, 256
     # threads and the blocks an SM of their `Blocks`
     lattice = _ptxas("lattice_apply",
@@ -609,23 +593,6 @@ def time_fused_update(K, n: int, L: int, dtype, on_device: bool = False,
         f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); three-term floor "
         f"{out['three_term_floor_ms'] * 1e3:.2f} us, FFMA floor "
         f"{out['ffma_floor_ms'] * 1e3:.2f} us (medians of {reps} and {plain_reps} launches)")
-    return out
-
-
-def time_yardsticks(K, n: int, L: int, dtype) -> dict:
-    """What the L2 flush costs any kernel, timed as K1 is: K1 on one row (a
-    launch that moves almost nothing) and PyTorch's copy of one (n, L) array
-    into another (2 of K1's 5 passes)."""
-    flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEV)
-    one_row = kernel_inputs(1, L, dtype)
-    src, dst = kernel_inputs(n, L, dtype)[:2]
-    for _ in range(3):
-        K.fused_energy_update(*one_row)
-        dst.copy_(src)
-    out = {"one_row_ms": median_ms(lambda: K.fused_energy_update(*one_row), 100, flush),
-           "copy_ms": median_ms(lambda: dst.copy_(src), 100, flush)}
-    log(f"  yardsticks {str(dtype)[6:]}: K1 on one row {out['one_row_ms'] * 1e3:.2f} us, "
-        f"copy_ of one ({n}, {L}) array {out['copy_ms'] * 1e3:.2f} us (L2 flushed)")
     return out
 
 
@@ -873,7 +840,7 @@ def profile(tag: str, fn, top: int = 8, share_of: str | None = None):
 
 
 # ---------------------------------------------------------------------------
-# the training path and the piece splat
+# the training path
 # ---------------------------------------------------------------------------
 
 
@@ -1012,48 +979,6 @@ def run_train_tsukuba() -> dict:
             "mse_after": hist["mse_after"], "launches": launches, "wall_s": wall}
 
 
-def run_pieces() -> dict:
-    """E: B's pair, untiled, with and without the piece tables."""
-    from depth_estimation_torch.models.pipeline import (CRFStereoConfig, calibrate_capacity,
-                                                        crf_stereo_infer)
-
-    left, right, _ = synthetic_pair(1.0)
-    t0 = time.perf_counter()
-    cfg = calibrate_capacity(left, CRFStereoConfig(num_disp=LABELS, niters=NITERS), pieces=True,
-                             device=DEV)
-    cfg = replace(cfg, fused_update=True)
-    log(f"pipeline E: calibrated in {time.perf_counter() - t0:.2f} s: max_vertices="
-        f"{cfg.max_vertices} max_pieces={cfg.max_pieces} sort_mode={cfg.sort_mode}")
-    check(cfg.max_pieces is not None and cfg.tile_px is None, cfg)
-    plain = replace(cfg, max_pieces=None)
-
-    zero_launches()
-    out = crf_stereo_infer(left, right, cfg, device=DEV)
-    torch.cuda.synchronize()
-    launches = k1_launches()
-    check(launches == NITERS, f"{launches} launches, want {NITERS}")
-    plan = out["plans"][0]
-    pieces, num_valid = int(plan.num_pieces), int(plan.num_valid)
-    log(f"pipeline E: {pieces} pieces of {cfg.max_pieces}, num_valid={num_valid} of "
-        f"{cfg.max_vertices}, fused_energy_update launches in one run = {launches}")
-    check(pieces <= cfg.max_pieces and num_valid <= cfg.max_vertices, "capacity overflow")
-    disp = out["disparity"]
-    check(bool(torch.isfinite(disp).all()), "non-finite disparity")
-    ref = crf_stereo_infer(left, right, plain, device=DEV)["disparity"]
-    diff = float((disp - ref).abs().max())
-    log(f"pipeline E: |disparity with pieces - without| max {diff:.3g} px")
-    check(diff <= PIECES_ATOL, f"pieces move the disparity by {diff} px")
-    out_ms = {}
-    for name, c in (("pieces", cfg), ("no_pieces", plain), ("pieces_again", cfg),
-                    ("no_pieces_again", plain)):
-        crf_stereo_infer(left, right, c, device=DEV)
-        out_ms[name] = median_ms(lambda: crf_stereo_infer(left, right, c, device=DEV), 10)
-    log(f"pipeline E: warm medians of 10, in turns: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in out_ms.items()))
-    return {"launches": launches, "max_abs_diff": diff, "num_pieces": pieces,
-            "max_pieces": cfg.max_pieces, **{f"{k}_ms": v for k, v in out_ms.items()}}
-
-
 # ---------------------------------------------------------------------------
 # serving, the distributed code on one card, the operators
 # ---------------------------------------------------------------------------
@@ -1086,8 +1011,8 @@ def run_serving() -> dict:
     launches = k1_launches()
     c = server.cfg
     log(f"serving F: first call {first_s:.2f} s (calibration included): max_vertices="
-        f"{c.max_vertices} sort_mode={c.sort_mode} tile_px={c.tile_px} tile_u={c.tile_u} "
-        f"max_pieces={c.max_pieces}; fused_energy_update launches = {launches}")
+        f"{c.max_vertices} sort_mode={c.sort_mode} tile_px={c.tile_px} tile_u={c.tile_u}; "
+        f"fused_energy_update launches = {launches}")
     check(launches == SERVE_BATCH * NITERS, f"{launches} launches, want {SERVE_BATCH * NITERS}")
     check(out.shape == (SERVE_BATCH, H, W) and out.device.type == DEV, "served shape or device")
     check(bool(torch.isfinite(out).all()), "non-finite served disparity")
@@ -1777,7 +1702,7 @@ def run_fullres() -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     got = launches()
-    k1, k1w, ffma = got["K1"], got["K1w"], got["K1w_ffma"]
+    k1, k1w = got["K1"], got["K1w"]
     lattice = LK.launch_counts()
     costvolume = CVK.cost_volume_kernel.launches
     peak = torch.cuda.max_memory_allocated()
@@ -1890,7 +1815,7 @@ def run_fullres() -> dict:
     busy_ms, k1w_ms = profile(f"pipeline {tag}",
                               lambda: crf_stereo_infer(left, right, cfg, device=DEV),
                               share_of="fused_energy_update_wide_kernel")
-    return {"launches_k1w": k1w, "launches_k1": k1, "launches_ffma": ffma,
+    return {"launches_k1w": k1w, "launches_k1": k1,
             "launches_lattice": lattice, "ms": ms, "chain_ms": chain_ms, "device_busy_ms": busy_ms,
             "k1w_device_ms": k1w_ms, "k1w_share": k1w_ms / busy_ms if busy_ms else None,
             "first_s": first_s, "calibrate_s": calib_s, "tiled": tiled, "tile_u": cfg.tile_u,
@@ -1905,14 +1830,13 @@ def run_wide_disparity() -> dict:
     fused update: 5 launches of K1x and none of the other kernels, a finite
     disparity, within BF16_MEAN_TOL of the same run with K1x's plain version
     in its place, the fused loop within DISP_ATOL of the unfused one in
-    float32, the 96x384 crop in float32 against the CPU; the warm pipeline
-    with K1x and with K1w_ffma in its place, one profile, peak memory."""
+    float32, the 96x384 crop in float32 against the CPU; the warm pipeline,
+    one profile, peak memory."""
     from depth_estimation_torch.data.synthetic import make_stereo_pair
     from depth_estimation_torch.models import pipeline as P
     from depth_estimation_torch.models.pipeline import crf_stereo_infer
     from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
-                                                           fused_energy_update_reference,
-                                                           fused_energy_update_wide_ffma)
+                                                           fused_energy_update_reference)
     from depth_estimation_torch.tools.bench_suite import lattice_cfg
 
     tag = f"L (wide disparity, {MID_H}x{MID_W}, L={MID_LABELS}, bf16, fused)"
@@ -2001,24 +1925,13 @@ def run_wide_disparity() -> dict:
         f"{crop_diff:.3g} px (CPU run {crop_cpu_s:.1f} s)")
     check(crop_diff <= DISP_ATOL, f"crop: max over {DISP_ATOL} px against the CPU")
 
-    # warm, with K1x and with K1w_ffma launched in its place (not gated)
-    def warm(update=None):
-        if update is not None:
-            P.fused_energy_update = update
-        try:
-            crf_stereo_infer(left, right, cfg, device=DEV)  # warm-up
-            return median_ms(lambda: crf_stereo_infer(left, right, cfg, device=DEV), 3)
-        finally:
-            P.fused_energy_update = fused_energy_update
-
-    ms = warm()
-    ms_ffma = warm(fused_energy_update_wide_ffma)
-    log(f"{tag}: warm pipeline {ms:.3f} ms with K1x, {ms_ffma:.3f} ms with K1w_ffma in its "
-        "place (median of 3, CUDA events)")
+    crf_stereo_infer(left, right, cfg, device=DEV)  # warm-up
+    ms = median_ms(lambda: crf_stereo_infer(left, right, cfg, device=DEV), 3)
+    log(f"{tag}: warm pipeline {ms:.3f} ms with K1x (median of 3, CUDA events)")
     busy_ms, k1x_ms = profile(f"pipeline {tag}",
                               lambda: crf_stereo_infer(left, right, cfg, device=DEV),
                               share_of="fused_energy_update_xwide")
-    return {"launches_k1x": k1x, "launches": got, "ms": ms, "ms_with_k1w_ffma": ms_ffma,
+    return {"launches_k1x": k1x, "launches": got, "ms": ms,
             "device_busy_ms": busy_ms, "k1x_device_ms": k1x_ms,
             "k1x_share": k1x_ms / busy_ms if busy_ms else None, "first_s": first_s,
             "calibrate_s": calib_s, "tiled": tiled, "tile_px": cfg.tile_px, "tile_u": cfg.tile_u,
@@ -2093,14 +2006,13 @@ def run_route_check() -> dict:
     kernels, a finite disparity, within BF16_MEAN_TOL of the same run with
     K1xx's plain version in its place, the fused loop within DISP_ATOL of
     the unfused one in float32; beside the bf16 gate, what rounding alone
-    does to it (`rounding_witness`); the warm pipeline with K1xx and with
-    K1w_ffma in its place, K1xx's share of one profile, peak memory."""
+    does to it (`rounding_witness`); the warm pipeline, K1xx's share of one
+    profile, peak memory."""
     from depth_estimation_torch.data.synthetic import make_stereo_pair
     from depth_estimation_torch.models import pipeline as P
     from depth_estimation_torch.models.pipeline import crf_stereo_infer
     from depth_estimation_torch.ops.cuda.meanfield import (fused_energy_update,
-                                                           fused_energy_update_reference,
-                                                           fused_energy_update_wide_ffma)
+                                                           fused_energy_update_reference)
     from depth_estimation_torch.tools.bench_suite import lattice_cfg
 
     tag = (f"M (K1xx's route, {ROUTE_H}x{ROUTE_W}, L={ROUTE_LABELS}, bf16, fused; a check of "
@@ -2173,25 +2085,14 @@ def run_route_check() -> dict:
     finally:
         torch.use_deterministic_algorithms(False)
 
-    # warm, with K1xx and with K1w_ffma launched in its place (not gated)
-    def warm(update=None):
-        if update is not None:
-            P.fused_energy_update = update
-        try:
-            crf_stereo_infer(left, right, cfg, device=DEV)  # warm-up
-            return median_ms(lambda: crf_stereo_infer(left, right, cfg, device=DEV), 3)
-        finally:
-            P.fused_energy_update = fused_energy_update
-
-    ms = warm()
-    ms_ffma = warm(fused_energy_update_wide_ffma)
-    log(f"{tag}: warm pipeline {ms:.3f} ms with K1xx, {ms_ffma:.3f} ms with K1w_ffma in its "
-        "place (median of 3, CUDA events)")
+    crf_stereo_infer(left, right, cfg, device=DEV)  # warm-up
+    ms = median_ms(lambda: crf_stereo_infer(left, right, cfg, device=DEV), 3)
+    log(f"{tag}: warm pipeline {ms:.3f} ms with K1xx (median of 3, CUDA events)")
     busy_ms, k1xx_ms = profile(f"pipeline {tag}",
                                lambda: crf_stereo_infer(left, right, cfg, device=DEV),
                                share_of="fused_energy_update_xxwide")
     return {"launches_k1xx": k1xx, "launches": got, "launches_k1xx_f32": f32_launches, "ms": ms,
-            "ms_with_k1w_ffma": ms_ffma, "c_flip_share": flips, "device_busy_ms": busy_ms, "k1xx_device_ms": k1xx_ms,
+            "c_flip_share": flips, "device_busy_ms": busy_ms, "k1xx_device_ms": k1xx_ms,
             "k1xx_share": k1xx_ms / busy_ms if busy_ms else None, "first_s": first_s,
             "calibrate_s": calib_s, "tile_px": cfg.tile_px, "tile_u": cfg.tile_u,
             "max_vertices": cfg.max_vertices, "sort_mode": cfg.sort_mode, "peak_bytes": peak,
@@ -2609,7 +2510,7 @@ def main() -> int:
 
     log("fused_energy_update against its plain version (K1 at L in "
         f"{K.SUPPORTED_L}, K1w at every other L up to {K.WIDE_MAX_L}, K1x up to "
-        f"{K.XWIDE_MAX_L}, K1xx above; K1w_ffma launched directly):")
+        f"{K.XWIDE_MAX_L}, K1xx above):")
     n, n_full, n_mid = H * W, FULL_H * FULL_W, MID_H * MID_W
     errs = {}
     for rows, L in ((n, LABELS), (n - 7, LABELS), (n, 8), (n, 32), (n, 64)):
@@ -2622,11 +2523,6 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):  # K1xx at a label count off every pad
         errs[XXWIDE_ODD_L, XXWIDE_ODD_L, dtype] = check_fused_update(K, XXWIDE_ODD_L, XXWIDE_ODD_L,
                                                                      dtype)
-    errs_ffma = {}
-    for L in FFMA_CHECK_L:  # K1w_ffma, launched directly: no L reaches it through the dispatch
-        for rows in (n, n - 7) if L < FFMA_CHECK_L[-1] else (n - 7,):
-            for dtype in (torch.float32, torch.bfloat16):
-                errs_ffma[rows, L, dtype] = check_fused_update(K, rows, L, dtype, kernel="K1w_ffma")
     for dtype in (torch.float32, torch.bfloat16):  # K1w, K1x and K1xx at their phases' shapes
         errs[n_full, FULL_LABELS, dtype] = check_fused_update(K, n_full, FULL_LABELS, dtype,
                                                               on_device=True)
@@ -2647,39 +2543,22 @@ def main() -> int:
     # K1 at the state of the JAX bench suite's middlebury64 config (994x1482, L = 64)
     t_mid64 = {dt: time_fused_update(K, n_mid, 64, dtype, on_device=True)
                for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
-    yardsticks = {key: time_yardsticks(K, n, LABELS, dtype)
-                  for key, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
     w_full = {dt: time_fused_update(K, n_full, FULL_LABELS, dtype, on_device=True)
               for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
-    # the FFMA design K1w replaced, on the same inputs and card: a yardstick
-    w_ffma = {dt: time_fused_update(K, n_full, FULL_LABELS, dtype, on_device=True,
-                                    kernel="K1w_ffma")
-              for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
-    # K1w against K1w_ffma at the ends of K1w's range, on fullres128's rows
-    w_by_L = {f"{kernel}_L{L}_{dt}": time_fused_update(K, n_full, L, dtype, on_device=True,
-                                                       kernel=kernel)
-              for L in (24, 256) for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))
-              for kernel in ("K1w", "K1w_ffma")}
+    # K1w at the ends of its range, on fullres128's rows
+    w_by_L = {f"K1w_L{L}_{dt}": time_fused_update(K, n_full, L, dtype, on_device=True)
+              for L in (24, 256) for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
     w_flagship = {dt: time_fused_update(K, n, FULL_LABELS, dtype)
                   for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
-    # K1x at phase L's shape, beside K1w_ffma (the kernel that served it
-    # before) launched directly on the same inputs; and beside K1w at 256
+    # K1x at phase L's shape; and beside K1w at 256
     x_mid = {dt: time_fused_update(K, n_mid, MID_LABELS, dtype, on_device=True)
              for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
-    x_mid_ffma = {dt: time_fused_update(K, n_mid, MID_LABELS, dtype, on_device=True,
-                                        kernel="K1w_ffma")
-                  for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
     x_256 = {dt: time_fused_update(K, n_full, 256, dtype, on_device=True, kernel="K1x")
              for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
-    # K1xx at (393216, 1536), then K1w_ffma launched directly on the same
-    # inputs (the kernel that served L above 1024 before), then the plain
-    # version (timed beside each)
+    # K1xx at (393216, 1536), and its plain version
     xx = {dt: time_fused_update(K, XX_N, XX_LABELS, dtype, on_device=True,
                                 plain_reps=XX_SLOW_REPS)
           for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
-    xx_ffma = {dt: time_fused_update(K, XX_N, XX_LABELS, dtype, on_device=True, kernel="K1w_ffma",
-                                     reps=XX_SLOW_REPS, plain_reps=XX_SLOW_REPS)
-               for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
     # K1xx at phase L's shape, on the inputs K1x is timed on there
     xx_mid = {dt: time_fused_update(K, n_mid, MID_LABELS, dtype, on_device=True, kernel="K1xx")
               for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
@@ -2693,7 +2572,6 @@ def main() -> int:
     b = run_pipeline("B (general tiled plan, f32)", 1.0, {}, "auto", f32=True)
     c = run_trainable_step()
     d = run_train_tsukuba()
-    e = run_pieces()
     f = run_serving()
     g = run_world()
     h = run_operators()
@@ -2706,7 +2584,7 @@ def main() -> int:
     bench = run_benchmarks(a, k)
     log(json.dumps({"tools": {"N": tools}}))
     log(json.dumps({"benchmarks": {"O": bench}}))
-    log(json.dumps({"pipelines": {"A": a, "B": b, "E": e, "K": k, "L": wd, "M": m}}))
+    log(json.dumps({"pipelines": {"A": a, "B": b, "K": k, "L": wd, "M": m}}))
     log(json.dumps({"training": {"C": c, "D": d}}))
     log(json.dumps({"serving": {"F": f}, "world": {"G": g}, "operators": {"H": h}}))
     log(json.dumps({"detection": {"I": i, "J": j}}))
@@ -2720,9 +2598,7 @@ def main() -> int:
                                        for dt, elt in (("bf16", 2), ("f32", 4))},
                     "geometry_xxwide": {f"L{L}_{dt}": vars(K.xxwide_geometry(XX_N, L, elt, sms))
                                         for L in XXWIDE_CHECK_L + (XXWIDE_ODD_L,)
-                                        for dt, elt in (("bf16", 2), ("f32", 4))},
-                    "geometry_wide_ffma": {L: vars(K.wide_ffma_geometry(n_full, L))
-                                           for L in FFMA_CHECK_L}}))
+                                        for dt, elt in (("bf16", 2), ("f32", 4))}}))
 
     k1 = {
         "name": "fused_energy_update", "route": "cuda",
@@ -2735,7 +2611,7 @@ def main() -> int:
         "launches_f": f["launches"], "launches_k": k["launches_k1"],
         "launches_n1": tools["N1"]["launches"],
         "max_abs_err_f32": errs[n, LABELS, torch.float32],
-        "f32": t_f32, **t_wide, f"n{n_mid}_L64": t_mid64, "yardsticks": yardsticks,
+        "f32": t_f32, **t_wide, f"n{n_mid}_L64": t_mid64,
         "design": "a warp per tile of rows, coalesced 16-byte loads, Mu in registers",
     }
     k1w = {
@@ -2759,12 +2635,6 @@ def main() -> int:
                   "softmax in the registers of a tensor-core product (mma.sync) with q split "
                   "into bf16 hi+lo, 16-byte stores; f32: the plain version's arithmetic bit "
                   "for bit (PyTorch's warp-softmax order, in-order FFMA sum)",
-        # the FFMA design that served these L before (K1w_ffma, now on no
-        # route), timed in this run on the same inputs; not on the main path
-        "yardstick_ffma": {
-            "name": "fused_energy_update_wide_ffma", "route": "cuda",
-            "source": "depth_estimation_torch/csrc/meanfield_wide_ffma.cu",
-            "launches_k": k["launches_ffma"], **w_ffma["bf16"], "f32": w_ffma["f32"]},
     }
     k1x = {
         "name": "fused_energy_update_xwide", "route": "cuda",
@@ -2786,16 +2656,6 @@ def main() -> int:
                   "(TMA) through a ring; bf16: wgmma m64n160k16 with q split into three bf16 "
                   "terms in registers (setmaxnreg); f32: the plain version's arithmetic "
                   "(warp-softmax order, in-order FFMA sum)",
-        # K1w_ffma, the kernel that served L > 256 before, on the same inputs
-        # (launched directly)
-        "yardstick_ffma": {
-            "name": "fused_energy_update_wide_ffma", "route": "cuda",
-            "source": "depth_estimation_torch/csrc/meanfield_wide_ffma.cu",
-            "launches_l": wd["launches"]["K1w_ffma"], **x_mid_ffma["bf16"],
-            "f32": x_mid_ffma["f32"],
-            "max_abs_err_by_L": {f"L{L}_{str(dt)[6:]}": e for (_, L, dt), e in errs_ffma.items()},
-            "design": "a block per tile of rows, values read one by one, q in shared memory, "
-                      "Mu staged through shared memory in 64-row blocks, 4x4 FFMA tiles a thread"},
     }
     k1xx = {
         "name": "fused_energy_update_xxwide", "route": "cuda",
@@ -2831,14 +2691,6 @@ def main() -> int:
                   "warpgroup wgmma m64n256k16 on its 256 columns with both operands from shared "
                   "memory; f32: work items of a 32-row tile, the plain version's arithmetic "
                   "(warp-softmax order, in-order FFMA sum, 8x8 a thread)",
-        # K1w_ffma, the kernel that served L > 1024 before, on the same inputs
-        # (launched directly)
-        "yardstick_ffma": {
-            "name": "fused_energy_update_wide_ffma", "route": "cuda",
-            "source": "depth_estimation_torch/csrc/meanfield_wide_ffma.cu",
-            "launches_m": m["launches"]["K1w_ffma"], **xx_ffma["bf16"], "f32": xx_ffma["f32"],
-            "max_abs_err_L1025": {str(dt)[6:]: errs_ffma[n - 7, FFMA_CHECK_L[-1], dt]
-                                  for dt in (torch.float32, torch.bfloat16)}},
     }
     lattice = {
         "name": "lattice_splat / lattice_slice", "route": "cuda",

@@ -2,9 +2,8 @@
 the JAX package's `crf/meanfield.py`).
 
 An eager loop keeps only the live state: one iteration's (n, L) tensors
-are freed as the next is made (autograd keeps what a backward needs), so
-there is no unrolled-program memory growth and `unroll` is accepted and
-ignored. Layout: label axis last.
+are freed as the next is made (autograd keeps what a backward needs).
+Layout: label axis last.
 """
 from __future__ import annotations
 
@@ -25,7 +24,6 @@ def mean_field_logits(
     message_fn: Callable[[torch.Tensor], torch.Tensor],
     compat_fn: Callable[[torch.Tensor], torch.Tensor],
     niters: int = 5,
-    unroll: bool | None = None,
 ) -> torch.Tensor:
     """Q ← softmax(−E0); repeat E = E0 + message_fn(compat_fn(Q)),
     Q = softmax(−E); returns the final logits −E."""
@@ -42,7 +40,6 @@ def mean_field_infer(
     message_fn: Callable[[torch.Tensor], torch.Tensor],
     Mu: torch.Tensor | Callable[[torch.Tensor], torch.Tensor],
     niters: int = 10,
-    unroll: bool | None = None,
 ) -> torch.Tensor:
     """Label probabilities Q after `niters` iterations; `Mu` is an L×L
     matrix or a callable Q ↦ Q·Mu."""

@@ -5,7 +5,8 @@
 // Replaces the Pallas kernel `fused_energy_update` (the JAX package's
 // ops/pallas/meanfield.py, `_kernel`) for every L up to 256 that K1
 // (meanfield.cu, L in {8, 16, 32, 64}) does not serve; larger L go to
-// K1w_ffma (meanfield_wide_ffma.cu). It computes the same function:
+// K1x (meanfield_xwide.cu) and K1xx (meanfield_xxwide.cu). It computes the
+// same function:
 //
 //     E[i]  = E0[i] + (S[i] - C[i])
 //     q     = softmax(-E[i])                    (max-subtracted)

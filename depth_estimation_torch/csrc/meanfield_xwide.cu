@@ -5,7 +5,7 @@
 // Replaces the Pallas kernel `fused_energy_update` (the JAX package's
 // ops/pallas/meanfield.py, `_kernel`) for 257 <= L <= 1024 (XWIDE_MAX_L);
 // K1 (meanfield.cu) serves L in {8, 16, 32, 64}, K1w (meanfield_wide.cu)
-// every other L up to 256, K1w_ffma (meanfield_wide_ffma.cu) L above 1024.
+// every other L up to 256, K1xx (meanfield_xxwide.cu) L above 1024.
 // It computes the same function:
 //
 //     E[i]  = E0[i] + (S[i] - C[i])

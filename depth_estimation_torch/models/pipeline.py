@@ -25,8 +25,7 @@ from ..ops.costvolume import cost_volume, expected_disparity
 from ..ops.cuda.meanfield import fused_energy_update
 from ..ops.dense_gaussian import dense_gaussian_filter
 from ..ops.permutohedral import (apply_plan, build_plan, rotation_matrices,
-                                 suggest_capacity, suggest_pieces, suggest_sort_mode,
-                                 suggest_tile_u)
+                                 suggest_capacity, suggest_sort_mode, suggest_tile_u)
 from ..utils.device import resolve_device
 from ..utils.profiling import span
 
@@ -37,7 +36,8 @@ __all__ = ["CRFStereoConfig", "stereo_unary", "calibrate_capacity", "crf_stereo_
 @dataclass(frozen=True)
 class CRFStereoConfig:
     """Pipeline hyperparameters; the fields and defaults of the JAX
-    package's `CRFStereoConfig`."""
+    package's `CRFStereoConfig` but the two that change nothing here
+    (`utils.weights.JAX_ONLY_FIELDS`)."""
 
     num_disp: int = 16
     window_size: int = 9
@@ -50,8 +50,6 @@ class CRFStereoConfig:
     mu_scale: float = 1.0
     # lattice vertex capacity; None = pow2 ≥ 2n (capped at n·(d+1))
     max_vertices: int | None = None
-    # piece-splat capacity; None splats entry-wise
-    max_pieces: int | None = None
     # average k rotated lattices (k× plan + apply cost)
     num_lattices: int = 1
     # prepend the coordinate sum to the plan's sort columns
@@ -63,8 +61,6 @@ class CRFStereoConfig:
     tile_bf16: bool = False
     # plan sort strategy; 'packed1' with tile_px takes the lean plan build
     sort_mode: str = "auto"
-    # accepted for compatibility; an eager loop has nothing to unroll
-    unroll: bool | None = None
     # mean-field state dtype: 'f32' or 'bf16'
     compute_dtype: str = "f32"
     # one fused CUDA update per iteration (lattice backend only)
@@ -105,16 +101,14 @@ def calibrate_capacity(
     left,
     cfg: CRFStereoConfig,
     headroom: float = 3.0,
-    pieces: bool = False,
     tiled: bool = False,
     tile_px: int = 32,
     max_incidence_bytes: int = 1 << 30,
     device=None,
 ) -> CRFStereoConfig:
     """A config sized to THIS image's guide: `max_vertices` = pow2 ≥
-    headroom·occupancy, the plan sort mode, with `pieces` the piece
-    capacity (1.5× this guide's pieces), and with `tiled` the tile size and
-    per-tile capacity (skipped when the incidence blocks would exceed
+    headroom·occupancy, the plan sort mode, and with `tiled` the tile size
+    and per-tile capacity (skipped when the incidence blocks would exceed
     `max_incidence_bytes`). 'packed1' is pinned only when the guide's
     packed key fits and `order_by_sum` is off."""
     if cfg.backend != "lattice":
@@ -126,9 +120,6 @@ def calibrate_capacity(
     ref = guide.reshape(-1, guide.shape[-1])
     cap = suggest_capacity(ref, headroom=headroom)
     sort_mode = "auto" if cfg.order_by_sum else suggest_sort_mode(ref)
-    pack = max(1, 128 // max(cfg.num_disp, 1))
-    max_pieces = (suggest_pieces(ref, cap, pack=pack, headroom=1.5)
-                  if pieces and pack > 1 else None)
     tile_kw = {}
     if tiled:
         B = tile_px
@@ -137,8 +128,7 @@ def calibrate_capacity(
         tu = suggest_tile_u(blocked(gp, B), B * B, cap)
         if hp * wp * tu * 4 <= max_incidence_bytes:
             tile_kw = {"tile_px": B, "tile_u": tu}
-    return replace(cfg, max_vertices=cap, max_pieces=max_pieces, sort_mode=sort_mode,
-                   **tile_kw)
+    return replace(cfg, max_vertices=cap, sort_mode=sort_mode, **tile_kw)
 
 
 @span("stereo.frame")
@@ -177,11 +167,9 @@ def crf_stereo_infer(left, right, cfg: CRFStereoConfig, device=None) -> dict:
         cap = cfg.max_vertices
         if cap is None:
             cap = min(1 << (2 * h * w - 1).bit_length(), ref.shape[0] * (ref.shape[1] + 1))
-        pack = max(1, 128 // max(cfg.num_disp, 1))
         plans = [
             build_plan(ref if m == 0 else ref @ torch.as_tensor(R, dtype=ref.dtype, device=dev),
-                       max_vertices=cap, max_pieces=cfg.max_pieces, pack=pack,
-                       order_by_sum=cfg.order_by_sum,
+                       max_vertices=cap, order_by_sum=cfg.order_by_sum,
                        tile=B * B if tiled else None, tile_u=cfg.tile_u,
                        tile_bf16=cfg.tile_bf16, sort_mode=cfg.sort_mode)
             for m, R in enumerate(rotation_matrices(ref.shape[1], cfg.num_lattices))

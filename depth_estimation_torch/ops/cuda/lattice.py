@@ -132,8 +132,8 @@ def lattice_splat(src: torch.Tensor, entry_order: torch.Tensor, entry_weight: to
     if src.dim() != 2 or not src.is_contiguous():
         raise ValueError(f"src: want a contiguous (n, L), got {tuple(src.shape)}")
     if entry_order is None or entry_weight is None or slot_start is None or chunk_start is None:
-        raise ValueError("the plan has no slot-sorted entry table (a tiled, lean or piece "
-                         "plan), which the splat kernel walks")
+        raise ValueError("the plan has no slot-sorted entry table (a tiled plan), which the "
+                         "splat kernel walks")
     _on_card("entry_weight", entry_weight, _WEIGHTS)
     n, L = src.shape
     N, C = entry_order.shape[0], slot_start.shape[0] - 1

@@ -7,8 +7,7 @@ S = W·C and the compatibility-transformed beliefs C = Q·Mu:
 
     E  = E0 + (S − C),   Q' = softmax(−E),   C' = Q'·Mu
 
-Four hand-written kernels serve every label count L (`kernel_for`), and a
-fifth is kept as a yardstick:
+Four hand-written kernels serve every label count L (`kernel_for`):
 
 - K1 (`csrc/meanfield.cu`) for L in `SUPPORTED_L`: each warp takes one
   tile of consecutive rows, loaded by coalesced 16-byte words, with Mu in
@@ -50,12 +49,6 @@ fifth is kept as a yardstick:
   walked between this one's chunks; Q'·Mu summed over l in order by FFMA).
   `xxwide_geometry` computes its rows a tile, passes, work items, grid and
   shared memory.
-- K1w_ffma (`csrc/meanfield_wide_ffma.cu`, `fused_energy_update_wide_ffma`),
-  the earlier FFMA design, now on no route of `kernel_for`: kept as the
-  yardstick the tensor-core kernels are timed against, launched directly.
-  A block per tile of rows, q in shared memory and Mu staged through it in
-  blocks, the product on the FFMA pipes; `wide_ffma_geometry` computes its
-  tiles and shared memory.
 
 The geometries are computed here, where the CPU tests reach them, and
 re-checked by the C side. A CUDA tensor goes to a kernel or raises; a CPU
@@ -63,8 +56,7 @@ tensor goes to `fused_energy_update_reference`. Each wrapper counts its own
 kernel's launches (`fused_energy_update.launches` for K1,
 `fused_energy_update_wide.launches` for K1w,
 `fused_energy_update_xwide.launches` for K1x,
-`fused_energy_update_xxwide.launches` for K1xx,
-`fused_energy_update_wide_ffma.launches` for K1w_ffma); `launch_counts`
+`fused_energy_update_xxwide.launches` for K1xx); `launch_counts`
 reads them all by kernel name and `zero_launch_counts` sets them to 0.
 `fused_energy_update`, the dispatch, is the span `meanfield.update` and
 counts its calls by route while a profiler records (`utils.profiling`).
@@ -79,12 +71,12 @@ import torch
 from ...utils.profiling import count, span
 
 __all__ = ["fused_energy_update", "fused_energy_update_wide", "fused_energy_update_xwide",
-           "fused_energy_update_xxwide", "fused_energy_update_wide_ffma", "KERNELS",
+           "fused_energy_update_xxwide", "KERNELS",
            "launch_counts", "zero_launch_counts",
            "fused_energy_update_reference", "kernel_for", "launch_geometry", "wide_geometry",
-           "xwide_geometry", "xxwide_geometry", "wide_ffma_geometry", "wide_config",
+           "xwide_geometry", "xxwide_geometry", "wide_config",
            "xwide_smem_bytes", "xwide_stage_labels", "xwide_pass_cols", "xxwide_smem_bytes",
-           "Geometry", "WideGeometry", "XwideGeometry", "XxwideGeometry", "WideFfmaGeometry",
+           "Geometry", "WideGeometry", "XwideGeometry", "XxwideGeometry",
            "SUPPORTED_L", "WIDE_MAX_L", "XWIDE_MAX_L"]
 
 SUPPORTED_L = (8, 16, 32, 64)
@@ -113,13 +105,6 @@ XXWIDE_PASS_COLS = 512  # output columns a pass (bf16: 256 a consumer warpgroup)
 XXWIDE_STAGES = {2: 5, 4: 3}  # stages of the ring
 XXWIDE_THREADS = 384  # a block: 4 producer warps, 8 consumer warps
 XXWIDE_AUX_BYTES = 640  # bf16: a stage's row factors, 1 / sums and flags
-
-# K1w_ffma's geometry (must agree with csrc/meanfield_wide_ffma.cu)
-WIDE_FFMA_THREADS = 256  # a block: __launch_bounds__(256, 2)
-WIDE_FFMA_ROWS_PER_THREAD = 4  # rows of C' a thread carries
-WIDE_FFMA_MU_ROWS = 64  # rows of Mu staged in shared memory at once
-WIDE_FFMA_MAX_COL_CHUNK = 64  # columns of Mu staged at once
-WIDE_FFMA_SMEM_TARGET = 100 * 1024  # a block's shared memory, where one q row fits
 MAX_SMEM = 232448  # the H100's opt-in limit a block (227 KB)
 
 # the counter of each route of `fused_energy_update`: a kernel's name, or the plain version
@@ -344,45 +329,6 @@ def xxwide_geometry(n: int, L: int, elt: int, sms: int) -> XxwideGeometry:
                           min(sms, items), xxwide_smem_bytes(elt))
 
 
-@dataclass(frozen=True)
-class WideFfmaGeometry:
-    """A launch of K1w_ffma: `num_tiles` blocks of WIDE_FFMA_THREADS threads, block b
-    computing rows [b·tile_rows, (b + 1)·tile_rows) that are < n. Its
-    dynamic shared memory (`smem_bytes`) holds the tile's q in f32, rows of
-    `q_stride` floats, and one block of WIDE_FFMA_MU_ROWS × `col_chunk` of Mu."""
-
-    tile_rows: int
-    q_stride: int
-    col_chunk: int
-    num_tiles: int
-    smem_bytes: int
-
-
-def wide_ffma_geometry(n: int, L: int) -> WideFfmaGeometry:
-    """K1w_ffma's geometry for (n, L) rows: Mu columns in chunks of the power of
-    two ≥ L (4 to 64; four columns a thread), as many rows a tile as the
-    threads carry (WIDE_FFMA_ROWS_PER_THREAD each) while the tile's q and a Mu
-    block fit WIDE_FFMA_SMEM_TARGET, and at least one row. Raises where one row
-    of q and a Mu block exceed the card's shared memory (L > 54,012)."""
-    if n < 1:
-        raise ValueError(f"n={n}: the kernel needs at least one row")
-    if L < 1:
-        raise ValueError(f"L={L}: the kernel needs at least one label")
-    col_chunk = 4
-    while col_chunk < min(L, WIDE_FFMA_MAX_COL_CHUNK):
-        col_chunk *= 2
-    q_stride = -(-L // 4) * 4 + 4  # whole float4s, plus 4 against bank conflicts
-    mu_bytes = WIDE_FFMA_MU_ROWS * col_chunk * 4
-    carried = WIDE_FFMA_THREADS // (col_chunk // 4) * WIDE_FFMA_ROWS_PER_THREAD
-    fit = (WIDE_FFMA_SMEM_TARGET - mu_bytes) // (q_stride * 4)
-    tile_rows = max(1, min(carried, fit))
-    smem = tile_rows * q_stride * 4 + mu_bytes
-    if smem > MAX_SMEM:
-        raise ValueError(f"L={L}: one row of q and a block of Mu need {smem} bytes of shared "
-                         f"memory, over the card's {MAX_SMEM}")
-    return WideFfmaGeometry(tile_rows, q_stride, col_chunk, -(-n // tile_rows), smem)
-
-
 def fused_energy_update_reference(E0, S, C, Mu):
     """Plain PyTorch version of the kernel: computes in f32 and rounds each
     output once to the I/O dtype. Returns (E, C')."""
@@ -424,7 +370,7 @@ def _checked(E0, S, C, Mu):
 
 
 def _launch(wrapper, library: str, E0, S, C, Mu, geometry):
-    """What the five wrappers share: the plain version for a CPU tensor,
+    """What the four wrappers share: the plain version for a CPU tensor,
     uncounted; else the arrays checked, E and C' allocated and `library`'s
     `<wrapper>_launch` called with the launch's ints that `geometry(n, L,
     elt)` gives (and, where it gives a scratch size, a scratch array after
@@ -519,28 +465,14 @@ def fused_energy_update_xxwide(E0: torch.Tensor, S: torch.Tensor, C: torch.Tenso
     return _launch(fused_energy_update_xxwide, "meanfield_xxwide", E0, S, C, Mu, geometry)
 
 
-def fused_energy_update_wide_ffma(E0: torch.Tensor, S: torch.Tensor, C: torch.Tensor,
-                                  Mu: torch.Tensor):
-    """K1w_ffma's wrapper: (E, C') as `fused_energy_update` computes them, at
-    any L ≥ 1 (up to 54,012) and any row alignment. No L reaches it through
-    `fused_energy_update`: it is launched directly, as a yardstick."""
-    def geometry(n, L, elt):
-        g = wide_ffma_geometry(n, L)
-        return (g.tile_rows, g.q_stride, g.col_chunk, g.num_tiles, g.smem_bytes), 0
-    return _launch(fused_energy_update_wide_ffma, "meanfield_wide_ffma", E0, S, C, Mu,
-                   geometry)
-
-
 fused_energy_update.launches = 0  # K1's launches, for run-time path checks
 fused_energy_update_wide.launches = 0  # K1w's launches
 fused_energy_update_xwide.launches = 0  # K1x's launches
 fused_energy_update_xxwide.launches = 0  # K1xx's launches
-fused_energy_update_wide_ffma.launches = 0  # K1w_ffma's launches
 
 # the wrappers by kernel name
 KERNELS = {"K1": fused_energy_update, "K1w": fused_energy_update_wide,
-           "K1x": fused_energy_update_xwide, "K1xx": fused_energy_update_xxwide,
-           "K1w_ffma": fused_energy_update_wide_ffma}
+           "K1x": fused_energy_update_xwide, "K1xx": fused_energy_update_xxwide}
 
 
 def launch_counts() -> dict[str, int]:

@@ -16,16 +16,15 @@ The O(n) approximation to dense Gaussian filtering
           1/(1+2^-d)).
 
 Static-capacity semantics are the JAX package's: C = `max_vertices`
-slots, slot C is the zero sentinel, vertices beyond C, entries of tiles
-beyond `tile_u` and pieces beyond `max_pieces` soft-drop (counted by
-`num_valid` > C, `tile_overflow` and `num_pieces` > `max_pieces`). Packed
-sort keys are int64, so a pinned 'packed1' raises instead of wrapping when
-the ranges do not fit.
+slots, slot C is the zero sentinel, vertices beyond C and entries of tiles
+beyond `tile_u` soft-drop (counted by `num_valid` > C and
+`tile_overflow`). Packed sort keys are int64, so a pinned 'packed1' raises
+instead of wrapping when the ranges do not fit.
 
-An untiled plan without pieces also keeps its entries sorted by slot
-(`entry_order`, `slot_start`: the dedup's sort order and segment heads, in
-int32; `entry_weight`: their weights in that order; `chunk_start`: the
-splat kernel's chunks of each slot). On the card its splat
+An untiled plan keeps its entries in slot order (`entry_order`,
+`slot_start`: the dedup's sort order and segment heads, in int32;
+`entry_weight`: their weights in that order; `chunk_start`: the splat
+kernel's chunks of each slot). On the card its splat
 and slice are the CUDA kernels of `ops/cuda/lattice.py`: the splat a
 segmented reduce over those sorted entries into the (C+1, L) vertex table
 in f32, the slice one gather of each pixel's d+1 rows. On the CPU they are
@@ -67,7 +66,6 @@ __all__ = [
     "suggest_capacity",
     "suggest_sort_mode",
     "suggest_tile_u",
-    "suggest_pieces",
     "lattice_filter_planned",
     "lattice_filter",
     "lattice_adjacency",
@@ -78,8 +76,6 @@ __all__ = [
 _I64 = torch.int64
 # packed int64 sort keys keep one spare bit for the neighbor-delta arithmetic
 _PACK_BITS = 62
-# the piece splat gathers rows of at most this many values (G·L)
-_LANES = 128
 
 
 # ---------------------------------------------------------------------------
@@ -183,10 +179,7 @@ class PermutohedralPlan(NamedTuple):
     C = `neighbors.shape[1]` is the static vertex capacity; slot C is the
     zero sentinel for missing neighbors and capacity overflow. A lean tiled
     plan sets the entry-wise table `slot` to None and runs only through the
-    tiled tables. The piece tables describe maximal runs of consecutive
-    pixels, inside one group of G = `pack` pixels, that splat into one
-    slot: one (G·L)-wide row gather and a (G,) weight contraction a piece.
-    An untiled plan without pieces keeps its entries in slot order, the
+    tiled tables. An untiled plan keeps its entries in slot order, the
     table the splat kernel walks: `entry_order[slot_start[c]:slot_start[c +
     1]]` are slot c's entries in increasing order, `entry_weight` their
     weights; the overflow entries (slot C) lie past `slot_start[C]`. The
@@ -201,10 +194,6 @@ class PermutohedralPlan(NamedTuple):
     tile_A: torch.Tensor | None = None  # (T, P, U) dense barycentric blocks
     tile_vid: torch.Tensor | None = None  # (T, U) global slot per local id
     tile_overflow: torch.Tensor | None = None  # () entries dropped (tile > U)
-    piece_group: torch.Tensor | None = None  # (T_P,) G-pixel group of each piece
-    piece_weights: torch.Tensor | None = None  # (T_P, G) bary weight per pixel of it
-    piece_slot: torch.Tensor | None = None  # (T_P,) its slot (C: padding, dropped)
-    num_pieces: torch.Tensor | None = None  # () pieces found (may exceed T_P: dropped)
     entry_order: torch.Tensor | None = None  # (N,) int32 entries e = r·n + i in slot order
     entry_weight: torch.Tensor | None = None  # (N,) their barycentric weights
     slot_start: torch.Tensor | None = None  # (C+1,) int32 first sorted entry of each slot
@@ -350,8 +339,6 @@ def _counted(plan: PermutohedralPlan) -> PermutohedralPlan:
 def build_plan(
     ref: torch.Tensor,
     max_vertices: int | None = None,
-    max_pieces: int | None = None,
-    pack: int = 8,
     order_by_sum: bool = True,
     tile: int | None = None,
     tile_u: int = 512,
@@ -362,20 +349,18 @@ def build_plan(
 
     Args:
       max_vertices: static capacity C (default n·(d+1), the worst case).
-      max_pieces, pack: build the piece tables with capacity T_P =
-        `max_pieces` and G = `pack` pixels a group (size it with
-        `suggest_pieces`; pieces beyond T_P drop their mass). The splat
-        uses them when G·L ≤ 128 and the plan is untiled.
       order_by_sum: prepend the coordinate sum as the most significant
         sort column (the same vertices in another slot order).
       tile, tile_u, tile_bf16: build the (T, P=tile, U=tile_u) incidence
         blocks of the tiled splat/slice (n % tile == 0), in bf16 if asked.
       sort_mode: 'auto' | 'packed1' | 'packed2' | 'lex'. 'packed1' with
-        `tile` (order_by_sum False, no pieces) takes the lean per-tile build.
+        `tile` (order_by_sum False) takes the lean per-tile build.
+
+    An untiled plan carries the entry table (`entry_order`, `entry_weight`,
+    `slot_start`, `chunk_start`); a tiled one does not.
     """
     n, d = ref.shape
-    if (tile is not None and sort_mode == "packed1" and not order_by_sum
-            and max_pieces is None):
+    if tile is not None and sort_mode == "packed1" and not order_by_sum:
         C_lean = n * (d + 1) if max_vertices is None else int(max_vertices)
         return _counted(_build_plan_tiled_lean(ref, C_lean, int(tile), int(tile_u), tile_bf16))
     dev = ref.device
@@ -417,13 +402,8 @@ def build_plan(
     ])
     neighbors = _neighbors(_join(list(unique_keys.T), list(queries.T), sort_mode), d, C)
 
-    pieces = {}
-    if max_pieces is not None and pack > 1:
-        pieces = _piece_tables(slot.T.reshape(N), bary_t.reshape(N), n, C,
-                               int(max_pieces), int(pack))
-
     entries = {}
-    if tile is None and not pieces:
+    if tile is None:
         # --- the entries in slot order for the splat kernel: slots past
         # the occupied ones start at N; slot_start[C] bounds slots < C
         slot_start = torch.full((C + 1,), N, dtype=torch.int32, device=dev)
@@ -472,34 +452,7 @@ def build_plan(
 
     return _counted(PermutohedralPlan(
         slot=slot, bary=bary_t.T, neighbors=neighbors, num_valid=num_valid,
-        tile_A=tile_A, tile_vid=tile_vid, tile_overflow=tile_overflow, **pieces, **entries))
-
-
-def _piece_tables(slot_e: torch.Tensor, bary_e: torch.Tensor, n: int, C: int,
-                  T_P: int, G: int) -> dict:
-    """Piece tables from the (N,) remainder-major entry slots and weights
-    (entry e = r·n + i): one stable sort of the entries by (slot, pixel),
-    then a piece breaks where the slot changes, the pixel is not the next
-    one, or the next G-pixel group begins. Pieces come in slot order, as in
-    the JAX package, so the same pieces drop when T_P binds."""
-    dev = slot_e.device
-    pixel_e = torch.arange(slot_e.shape[0], device=dev) % n
-    _, order = torch.sort(slot_e * n + pixel_e, stable=True)
-    s_slot, s_pix, s_w = slot_e[order], pixel_e[order], bary_e[order]
-    brk = ((s_slot[1:] != s_slot[:-1]) | (s_pix[1:] != s_pix[:-1] + 1)
-           | (s_pix[1:] // G != s_pix[:-1] // G))
-    head = _heads(brk)
-    pid = torch.cumsum(head, 0) - 1
-    ok = pid < T_P
-    weights = torch.zeros(T_P * G + 1, dtype=s_w.dtype, device=dev)
-    weights[torch.where(ok, pid * G + s_pix % G, T_P * G)] = s_w
-    at_head = torch.where(head & ok, pid, T_P)
-    group = torch.zeros(T_P + 1, dtype=_I64, device=dev)
-    group[at_head] = s_pix // G
-    pslot = torch.full((T_P + 1,), C, dtype=_I64, device=dev)
-    pslot[at_head] = s_slot
-    return dict(piece_group=group[:T_P], piece_weights=weights[:-1].reshape(T_P, G),
-                piece_slot=pslot[:T_P], num_pieces=pid[-1] + 1)
+        tile_A=tile_A, tile_vid=tile_vid, tile_overflow=tile_overflow, **entries))
 
 
 def _build_plan_tiled_lean(ref: torch.Tensor, C: int, P: int, U: int,
@@ -640,15 +593,6 @@ def suggest_tile_u(ref: torch.Tensor, tile: int, max_vertices: int,
     return -(-want // 128) * 128
 
 
-def suggest_pieces(ref: torch.Tensor, max_vertices: int, pack: int = 8,
-                   headroom: float = 1.1) -> int:
-    """Piece capacity: headroom·(pieces of this guide at this capacity and
-    pack), rounded up to a multiple of 4096. Builds one throwaway plan."""
-    plan = build_plan(ref, max_vertices=max_vertices, max_pieces=8, pack=pack)
-    want = max(int(int(plan.num_pieces) * headroom), 4096)
-    return -(-want // 4096) * 4096
-
-
 # ---------------------------------------------------------------------------
 # Apply: splat → blur → slice (linear in src)
 # ---------------------------------------------------------------------------
@@ -668,26 +612,18 @@ def _splat(plan: PermutohedralPlan, src: torch.Tensor) -> torch.Tensor:
 
     The tiled form is one batched (U, P) @ (P, L) product per tile, with
     the source rounded to the blocks' dtype and the products kept in f32
-    (a bf16 `bmm` would round each tile's partials). The piece form (an
-    untiled plan with piece tables, G·L ≤ 128) gathers one G-pixel row of
-    the source a piece and contracts it with the piece's weights. Any other
-    untiled splat is `ops/cuda/lattice.splat_untiled`: the kernel on the
-    card, the plain version on the CPU."""
-    n, L = src.shape
-    acc = torch.promote_types(src.dtype, torch.float32)
+    (a bf16 `bmm` would round each tile's partials). An untiled plan keeps
+    its entries in slot order, and its splat is
+    `ops/cuda/lattice.splat_untiled`: the kernel on the card, the plain
+    version on the CPU."""
     if plan.tile_A is not None:
+        L = src.shape[1]
+        acc = torch.promote_types(src.dtype, torch.float32)
         T, P, U = plan.tile_A.shape
         s3 = src.reshape(T, P, L).to(plan.tile_A.dtype).to(acc)
         partials = torch.bmm(plan.tile_A.transpose(1, 2).to(acc), s3)
         return _segment_sum(partials.reshape(T * U, L), plan.tile_vid.reshape(-1),
                             plan.capacity, src.dtype)
-    pw = plan.piece_weights
-    if pw is not None and pw.shape[1] * L <= _LANES:
-        T_P, G = pw.shape
-        R = -(-n // G)
-        rows = torch.nn.functional.pad(src, (0, 0, 0, R * G - n)).reshape(R, G, L)
-        contrib = torch.einsum("tg,tgl->tl", pw.to(acc), rows[plan.piece_group].to(acc))
-        return _segment_sum(contrib, plan.piece_slot, plan.capacity, src.dtype)
     return _kernels.splat_untiled(plan, src)
 
 

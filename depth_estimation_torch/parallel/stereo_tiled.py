@@ -11,8 +11,8 @@ halo's truncation: a halo of about σp·√(h² + w²) (48 px at 288×384 and
 σp = 0.1) recovers the untiled solution; the default 16 favours speed.
 
 Like the JAX version it ignores `tile_px`, `tile_bf16`, `sort_mode`,
-`max_pieces`, `num_lattices`, `compute_dtype` and `fused_update`: the
-mean field is the plain float32 loop, so this path launches no CUDA kernel.
+`num_lattices`, `compute_dtype` and `fused_update`: the mean field is the
+plain float32 loop, so this path launches no CUDA kernel.
 """
 from __future__ import annotations
 

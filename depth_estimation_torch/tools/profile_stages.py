@@ -71,7 +71,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-vertices", type=int, default=None,
                     help="static capacity (default: 16384 at 288x384, else the "
                          "measured occupancy x3)")
-    ap.add_argument("--pieces", type=int, default=0, choices=(0, 1))
     ap.add_argument("--order-by-sum", type=int, default=0, choices=(0, 1))
     ap.add_argument("--tiled", type=int, default=0, choices=(0, 1, 2),
                     help="tiled splat/slice; 2 = bfloat16 blocks")
@@ -144,7 +143,7 @@ class StageInputs:
 
 def prepare(args: argparse.Namespace, device) -> tuple[StageInputs, dict]:
     """The stage inputs of `args` on `device`, and the JSON line's
-    configuration keys (capacity, pieces, tiling, sort mode, the pair, the
+    configuration keys (capacity, tiling, sort mode, the pair, the
     plan's occupancy)."""
     left, right, gt, source = load_pair(args.h, args.w, device, args.pair)
     (h, w), L = left.shape[:2], args.labels
@@ -168,13 +167,10 @@ def prepare(args: argparse.Namespace, device) -> tuple[StageInputs, dict]:
         cap = 16384  # the flagship's occupancy (~4.7k on Tsukuba) x3, a power of 2
     else:
         cap = P.suggest_capacity(ref, headroom=3.0)
-    pack = max(1, 128 // max(L, 1))
-    max_pieces = P.suggest_pieces(ref, cap, pack=pack, headroom=1.5) if args.pieces else None
-    cfg = replace(cfg0, max_vertices=cap, max_pieces=max_pieces)
+    cfg = replace(cfg0, max_vertices=cap)
 
     def build(r: torch.Tensor) -> P.PermutohedralPlan:
-        return P.build_plan(r, max_vertices=cap, max_pieces=max_pieces, pack=pack,
-                            order_by_sum=bool(args.order_by_sum),
+        return P.build_plan(r, max_vertices=cap, order_by_sum=bool(args.order_by_sum),
                             tile=B * B if args.tiled else None, tile_u=tile_u,
                             tile_bf16=args.tiled == 2, sort_mode=args.sort_mode)
 
@@ -189,7 +185,8 @@ def prepare(args: argparse.Namespace, device) -> tuple[StageInputs, dict]:
                           device=device) * 10.0
     Q0 = torch.softmax(-E0f, dim=-1)
     inputs = StageInputs(left, right, gt, cfg, ref, build, plan, src, vals, blurred, E0f, Q0, Mu)
-    keys = {"capacity": int(cap), "max_pieces": max_pieces, "tiled": args.tiled,
+    # max_pieces: the JAX tool's key; the port has no piece splat
+    keys = {"capacity": int(cap), "max_pieces": None, "tiled": args.tiled,
             "tile_px": B if args.tiled else None, "tile_u": tile_u if args.tiled else None,
             "sort_mode": args.sort_mode, "order_by_sum": bool(args.order_by_sum),
             "pair": source, "h": h, "w": w, "compute_dtype": args.compute_dtype,

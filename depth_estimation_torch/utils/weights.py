@@ -35,6 +35,7 @@ from ..models.pipeline import CRFStereoConfig
 from .device import resolve_device
 
 __all__ = [
+    "JAX_ONLY_FIELDS",
     "config_from_jax",
     "params_from_jax",
     "load_jax_params",
@@ -52,13 +53,27 @@ __all__ = [
 ]
 
 
+# fields of the JAX package's CRFStereoConfig that the port does not run
+JAX_ONLY_FIELDS = ("max_pieces", "unroll")
+
+
 def config_from_jax(cfg_or_dict) -> CRFStereoConfig:
     """The port's `CRFStereoConfig` from the JAX package's config (or its
-    dict), field by field, calibrated capacities included."""
+    dict), field by field, calibrated capacities included.
+
+    The fields in `JAX_ONLY_FIELDS` are dropped; any other field the port
+    lacks raises. Dropping them keeps the answer: `unroll` chooses how XLA
+    emits the mean-field loop, and the piece splat that `max_pieces` turns
+    on (untiled) computes the entry splat's sums, except that pieces beyond
+    `max_pieces` drop their mass, which the port's splat never does. With
+    tiles and a pinned 'packed1', `max_pieces` also kept the JAX package on
+    its general tiled build where the port takes the lean one; the two
+    agree unless tiles overflow `tile_u`."""
     if dataclasses.is_dataclass(cfg_or_dict):
         src = {f.name: getattr(cfg_or_dict, f.name) for f in dataclasses.fields(cfg_or_dict)}
     else:
         src = dict(cfg_or_dict)
+    src = {k: v for k, v in src.items() if k not in JAX_ONLY_FIELDS}
     names = {f.name for f in dataclasses.fields(CRFStereoConfig)}
     unknown = sorted(set(src) - names)
     if unknown:

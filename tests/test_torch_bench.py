@@ -105,7 +105,7 @@ def test_flag_defaults_are_bench_py_defaults():
     jax_defaults = _bench_py_defaults()
     port = vars(B.parse_args([]))
     shared = {k.lstrip("-").replace("-", "_") for k in jax_defaults} & set(port)
-    assert shared >= {"labels", "niters", "h", "w", "reps", "headroom", "pieces",
+    assert shared >= {"labels", "niters", "h", "w", "reps", "headroom",
                       "order_by_sum", "tiled", "fused", "dtype", "sort_mode", "tile_px",
                       "dense_baseline", "device"}
     for name in shared - {"device"}:

@@ -133,7 +133,7 @@ def test_lattice_configs_calibrate_as_the_jax_suite():
 
     jax_suite = _jax_suite()
     fields = ("num_disp", "niters", "max_vertices", "tile_px", "tile_u", "sort_mode",
-              "tile_bf16", "max_pieces")
+              "tile_bf16")
     jax_cfgs = {}
     for name, max_disp in (("middlebury64", lambda L: L - 2),
                            ("fullres128", lambda L: min(L - 2, 96))):

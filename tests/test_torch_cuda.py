@@ -1,4 +1,4 @@
-"""The PyTorch port's CUDA kernels (K1, K1w, K1x, K1xx and K1w_ffma, the
+"""The PyTorch port's CUDA kernels (K1, K1w, K1x and K1xx, the
 lattice apply's splat and slice, and the stereo cost volume) against their
 plain versions, on a card.
 
@@ -127,31 +127,6 @@ def test_wide_kernel_at_the_edges_of_its_geometry(case, L, dtype):
     n = {"block-1": block - 1, "block+1": block + 1,
          "wave+5": g.grid_x * block + 5}.get(case) or int(case)
     _check(_inputs(9, n, L), dtype)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L", [1, 3, 12, 24, 100, 128, 256, 300, 1025])
-@pytest.mark.parametrize("n", [1, 7, 110585])
-def test_wide_ffma_kernel_matches_plain_version(n, L, dtype):
-    """K1w_ffma, the earlier FFMA design (on no route of the dispatch now, a
-    yardstick), launched directly at the label counts it served alone
-    before K1w took L up to 256, and above XWIDE_MAX_L, which it served
-    before K1xx."""
-    _needs_card()
-    arrays = [torch.from_numpy(a).to("cuda", dtype) for a in _inputs(6, n, L)]
-    before = T.fused_energy_update_wide_ffma.launches
-    E_k, C_k = T.fused_energy_update_wide_ffma(*arrays)
-    torch.cuda.synchronize()
-    assert T.fused_energy_update_wide_ffma.launches == before + 1
-    E_r, C_r = T.fused_energy_update_reference(*arrays)
-    if dtype == torch.float32:
-        torch.testing.assert_close(E_k, E_r, rtol=1e-5, atol=1e-5)
-        torch.testing.assert_close(C_k, C_r, rtol=1e-5, atol=1e-5)
-    else:
-        ulp = 2.0 ** (torch.floor(torch.log2(E_r.float().abs().clamp_min(1e-30))) - 7)
-        assert bool(((E_k.float() - E_r.float()).abs() <= ulp).all())
-        torch.testing.assert_close(C_k.float(), C_r.float(), rtol=0, atol=1e-2)
 
 
 @pytest.mark.cuda
@@ -468,9 +443,10 @@ def test_lattice_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="dtype"):
         LK.lattice_slice(torch.zeros(plan.capacity + 1, 8, device="cuda"), plan.slot,
                          plan.bary.half(), 1.0)
-    pieces = P.build_plan(plan.bary.new_zeros(64, 5).normal_(), max_pieces=512)
+    lean = P.build_plan(plan.bary.new_zeros(64, 5).normal_(), order_by_sum=False, tile=64,
+                        tile_u=128, sort_mode="packed1")
     with pytest.raises(ValueError, match="entry table"):
-        LK.splat_untiled(pieces, torch.zeros(64, 100, device="cuda"))
+        LK.splat_untiled(lean, torch.zeros(64, 100, device="cuda"))
     assert _launched(before) == {"splat": 0, "slice": 0}
 
 

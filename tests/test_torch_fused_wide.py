@@ -2,11 +2,11 @@
 against the JAX package's Pallas kernel (interpret mode on the CPU, as
 tests/test_torch_fused.py runs it) at label counts K1 does not serve, the
 choice of kernel (K1x's own tests are in tests/test_torch_fused_xwide.py),
-the launch geometries of K1w and K1w_ffma, K1w's
+K1w's launch geometry, its
 arithmetic emulated in plain torch (bf16: q split into hi + lo bf16 terms;
-f32: the plain version's order of sums) against the plain version, the
-wrappers' refusals, and the fused pipeline at L = 24
-against the JAX pipeline. The kernels themselves are held against the
+f32: the plain version's order of sums) against the plain version, every
+wrapper on the CPU, the wrappers' refusals, the routes' wrappers and
+counters, and the fused pipeline at L = 24 against the JAX pipeline. The kernels themselves are held against the
 plain version on a card by tests/test_torch_cuda.py, which imports no JAX
 so that a machine with a card and without JAX runs it."""
 from dataclasses import replace
@@ -105,43 +105,6 @@ def test_wide_geometry_at_its_limits():
         T.wide_geometry(0, 24, 2, 132)
 
 
-# (tile_rows, q_stride, col_chunk, smem_bytes) of K1w_ffma at each L
-WIDE_FFMA = {1: (1024, 8, 4, 33792), 3: (1024, 8, 4, 33792), 8: (512, 12, 8, 26624),
-             12: (256, 16, 16, 20480), 16: (256, 20, 16, 24576), 24: (128, 28, 32, 22528),
-             32: (128, 36, 32, 26624), 64: (64, 68, 64, 33792), 128: (64, 132, 64, 50176),
-             256: (64, 260, 64, 82944)}
-
-
-@pytest.mark.parametrize("L", sorted(WIDE_FFMA))
-def test_wide_ffma_geometry(L):
-    """Tiles cover every row once; a tile's q rows hold L floats in whole
-    float4s; each thread carries at most 4 rows of 4 columns; the shared
-    memory is the q tile and one 64-row block of Mu, within the card's."""
-    n = 110585
-    g = T.wide_ffma_geometry(n, L)
-    assert (g.tile_rows, g.q_stride, g.col_chunk, g.smem_bytes) == WIDE_FFMA[L]
-    assert g.num_tiles == -(-n // g.tile_rows)
-    assert (g.num_tiles - 1) * g.tile_rows < n <= g.num_tiles * g.tile_rows
-    assert g.q_stride % 4 == 0 and g.q_stride >= L + 4
-    assert g.col_chunk >= min(L, 64) and g.col_chunk & (g.col_chunk - 1) == 0
-    threads_a_row_group = g.col_chunk // 4
-    assert g.tile_rows <= T.WIDE_FFMA_THREADS // threads_a_row_group * T.WIDE_FFMA_ROWS_PER_THREAD
-    assert g.smem_bytes == (g.tile_rows * g.q_stride + T.WIDE_FFMA_MU_ROWS * g.col_chunk) * 4
-    assert g.smem_bytes <= MAX_DYNAMIC_SMEM
-
-
-def test_wide_ffma_geometry_at_its_limits():
-    """One row a tile where q is large; over the card's shared memory it
-    refuses, as it does an empty input."""
-    g = T.wide_ffma_geometry(5, 20000)
-    assert g.tile_rows == 1 and g.num_tiles == 5 and g.smem_bytes <= MAX_DYNAMIC_SMEM
-    assert T.wide_ffma_geometry(1, 54012).smem_bytes == MAX_DYNAMIC_SMEM
-    with pytest.raises(ValueError, match="shared memory"):
-        T.wide_ffma_geometry(1, 54013)
-    with pytest.raises(ValueError, match="at least one row"):
-        T.wide_ffma_geometry(0, 24)
-
-
 def _bf16_update(E0, S, C, Mu, split=True):
     """K1w's bf16 arithmetic in plain torch: E and the softmax in f32, then
     C' from q as the kernel's two bf16 terms (q_lo·Mu + q_hi·Mu; products
@@ -218,19 +181,23 @@ def test_bf16_split_moves_fewer_values_than_one_rounding():
     assert once > 0.03 and split < 1e-3 and once > 50 * split
 
 
-def test_wrappers_take_the_plain_version_on_the_cpu_uncounted():
-    arrays = [torch.from_numpy(a) for a in _inputs(11, 300, 24)]
-    wrappers = (T.fused_energy_update, T.fused_energy_update_wide, T.fused_energy_update_wide_ffma)
-    counts = [fn.launches for fn in wrappers]
+@pytest.mark.parametrize("name,n,L", [("K1", 300, 16), ("K1w", 300, 24), ("K1x", 100, 300),
+                                      ("K1xx", 50, 1100)])
+def test_wrappers_take_the_plain_version_on_the_cpu_uncounted(name, n, L):
+    """Each kernel's wrapper, and the dispatch, at a label count that kernel
+    serves on the card: a CPU tensor gets the plain version's outputs, bit
+    for bit, and no launch is counted."""
+    assert T.kernel_for(L) == name
+    arrays = [torch.from_numpy(a) for a in _inputs(11, n, L)]
+    counts = T.launch_counts()
     E_r, C_r = T.fused_energy_update_reference(*arrays)
-    for fn in wrappers:
+    for fn in (T.KERNELS[name], T.fused_energy_update):
         E, C = fn(*arrays)
         assert torch.equal(E, E_r) and torch.equal(C, C_r)
-    assert [fn.launches for fn in wrappers] == counts
+    assert T.launch_counts() == counts
 
 
-@pytest.mark.parametrize("fn", ["fused_energy_update", "fused_energy_update_wide",
-                                "fused_energy_update_wide_ffma"])
+@pytest.mark.parametrize("fn", ["fused_energy_update", "fused_energy_update_wide"])
 def test_wrappers_refuse_other_devices_and_dtypes(fn):
     fn = getattr(T, fn)
     meta = torch.empty(16, 24, device="meta")
@@ -240,6 +207,16 @@ def test_wrappers_refuse_other_devices_and_dtypes(fn):
         e = torch.empty(16, 24, dtype=dtype, device="meta")
         with pytest.raises(ValueError, match="dtype"):
             fn(e, e, e, torch.empty(24, 24, dtype=dtype, device="meta"))
+
+
+def test_every_route_has_one_wrapper_and_one_counter():
+    """The kernels that `kernel_for` routes to are exactly the wrappers of
+    `KERNELS`, the launch counts of `launch_counts()` and the dispatch's
+    route counters other than the plain version's: no wrapper is on no
+    route, and no route lacks a wrapper or a counter."""
+    routes = {T.kernel_for(L) for L in range(1, 4100)}
+    assert routes == set(T.KERNELS) == set(T.launch_counts())
+    assert routes == set(T._ROUTE_COUNTERS) - {"plain"}
 
 
 def test_pipeline_fused_at_24_labels_matches_jax():

@@ -287,13 +287,11 @@ def test_build_is_keyed_by_source_and_out_of_git():
     assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == ["costvolume", "lattice_apply",
                                                                "meanfield",
                                                                "meanfield_wide",
-                                                               "meanfield_wide_ffma",
                                                                "meanfield_xwide",
                                                                "meanfield_xxwide"]
     assert build._target("costvolume").name.startswith("libcostvolume-")
     assert build._target("lattice_apply").name.startswith("liblattice_apply-")
     assert build._target("meanfield_wide").name.startswith("libmeanfield_wide-")
-    assert build._target("meanfield_wide_ffma").name.startswith("libmeanfield_wide_ffma-")
     assert build._target("meanfield_xwide").name.startswith("libmeanfield_xwide-")
     assert build._target("meanfield_xxwide").name.startswith("libmeanfield_xxwide-")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -151,15 +151,32 @@ def test_pinned_packed_mode_that_does_not_fit_raises():
     np.testing.assert_array_equal(order.numpy(), [0, 1])
 
 
-def test_pieces_not_ported():
-    """`max_pieces` no longer raises: the plan carries the piece tables
-    and counts its pieces as the JAX package does (tests/test_torch_pieces.py
-    holds the filter through them)."""
-    ref, _ = _guide(6, n=64)
-    plan = T.build_plan(torch.from_numpy(ref), max_pieces=4096)
-    pj = jax.jit(partial(J.build_plan, max_pieces=4096))(jnp.asarray(ref))
-    assert plan.piece_weights.shape == (4096, 8)
-    assert int(plan.num_pieces) == int(pj.num_pieces)
+@pytest.mark.parametrize("n,d,L,pack,max_vertices,max_pieces", [
+    (777, 4, 16, 8, None, None), (640, 5, 8, 16, None, None), (500, 3, 4, 8, None, None),
+    (512, 4, 16, 8, 256, 8192),  # vertex overflow
+])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_port_plan_matches_jax_piece_plan(n, d, L, pack, max_vertices, max_pieces, reverse):
+    """The JAX package's piece splat (a plan built with `max_pieces` at
+    `pack` pixels a group, the capacity `suggest_pieces` gives unless
+    pinned) computes the entry splat's sums: the port's untiled plan,
+    which has no pieces, filters as the JAX package's pieced one does, in
+    both blur orders and where vertices overflow the capacity."""
+    rs = np.random.RandomState(n)
+    ref = (rs.randn(n, d) * 1.5).astype(np.float32)
+    src = rs.rand(n, L).astype(np.float32)
+    cap = max_vertices or T.suggest_capacity(torch.from_numpy(ref))
+    pieces = max_pieces or J.suggest_pieces(jnp.asarray(ref), cap, pack=pack)
+    pj = jax.jit(partial(J.build_plan, max_vertices=cap, max_pieces=pieces, pack=pack))(
+        jnp.asarray(ref))
+    assert pj.piece_weights is not None and int(pj.num_pieces) <= pieces
+    oj = np.asarray(jax.jit(partial(J.apply_plan, reverse=reverse))(pj, jnp.asarray(src)))
+    pt = T.build_plan(torch.from_numpy(ref), max_vertices=cap)
+    assert pt.entry_order is not None
+    assert int(pt.num_valid) == int(pj.num_valid)
+    assert (int(pt.num_valid) > cap) == (max_vertices is not None)
+    ot = T.apply_plan(pt, torch.from_numpy(src), reverse=reverse).numpy()
+    _assert_close(ot, oj, False)
 
 
 @pytest.mark.parametrize("kind", ["general", "tiled"])
@@ -196,6 +213,8 @@ def test_shift_rows_adds_a_constant_a_row_and_keeps_bf16_values_small(kind):
     (512, 4, dict(max_vertices=256)),  # capacity overflow
     (300, 3, dict(max_vertices=None)),
     (512, 5, dict(max_vertices=4096, sort_mode="lex", order_by_sum=True)),
+    # every untiled plan carries the table: at the calibrated capacity
+    (777, 4, dict()), (640, 5, dict()), (500, 3, dict()),
 ])
 def test_entry_table_describes_the_slots(n, d, kw):
     """`entry_order` lists the entries (e = r·n + i) slot by slot, each
@@ -205,6 +224,7 @@ def test_entry_table_describes_the_slots(n, d, kw):
     slot_start[C]; slots past the occupied ones start at N. `chunk_start`
     numbers the splat kernel's chunks, slot by slot."""
     ref, _ = _guide(7 + d, n=n, d=d)
+    kw = kw or dict(max_vertices=T.suggest_capacity(torch.from_numpy(ref)))
     plan = T.build_plan(torch.from_numpy(ref), **kw)
     C, N = plan.capacity, n * (d + 1)
     assert plan.entry_order.dtype == plan.slot_start.dtype == torch.int32
@@ -229,11 +249,10 @@ def test_entry_table_describes_the_slots(n, d, kw):
     assert (int(plan.slot_start[C]) < N) == overflow
 
 
-@pytest.mark.parametrize("kind", ["tiled", "lean", "pieces"])
+@pytest.mark.parametrize("kind", ["tiled", "lean"])
 def test_tiled_lean_and_piece_plans_carry_no_entry_table(kind):
     ref, _ = _guide(8, n=256)
-    kw = dict(max_pieces=4096) if kind == "pieces" else _plan_kwargs(kind, False)
-    plan = T.build_plan(torch.from_numpy(ref), **kw)
+    plan = T.build_plan(torch.from_numpy(ref), **_plan_kwargs(kind, False))
     assert (plan.entry_order, plan.entry_weight, plan.slot_start, plan.chunk_start) == (None,) * 4
 
 

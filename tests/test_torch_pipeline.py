@@ -7,7 +7,7 @@ tiled tables; at contrast 0.5 it pins 'packed1', so it runs the lean
 per-tile plan. The uncalibrated default runs the general entry-wise plan.
 In float32 the disparities agree within 5e-3 px, the tolerance
 tests/test_pallas.py holds the fused update to."""
-from dataclasses import replace
+from dataclasses import fields, replace
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +16,7 @@ import torch
 
 from depth_estimation_torch.data.synthetic import make_stereo_pair
 from depth_estimation_torch.models import pipeline as TP
-from depth_estimation_torch.utils.weights import config_from_jax
+from depth_estimation_torch.utils.weights import JAX_ONLY_FIELDS, config_from_jax
 from depth_estimation_tpu.models import pipeline as JP
 
 BASE = JP.CRFStereoConfig(num_disp=8, niters=3)
@@ -116,7 +116,26 @@ def test_order_by_sum_never_pins_packed1():
 def test_config_from_jax_carries_every_field(calibrated):
     jcfg = replace(calibrated[0.5], tile_bf16=True, compute_dtype="bf16", fused_update=True)
     tcfg = config_from_jax(jcfg)
-    assert tcfg == TP.CRFStereoConfig(**jcfg.__dict__)
+    kept = {k: v for k, v in jcfg.__dict__.items() if k not in JAX_ONLY_FIELDS}
+    assert set(kept) == {f.name for f in fields(TP.CRFStereoConfig)}
+    assert tcfg == TP.CRFStereoConfig(**kept)
     assert config_from_jax(jcfg.__dict__) == tcfg
     with pytest.raises(ValueError, match="lacks"):
         config_from_jax({"num_disp": 8, "no_such_field": 1})
+
+
+def test_config_from_jax_drops_the_fields_the_port_does_not_run():
+    """A JAX config calibrated with the piece splat and set to unroll: the
+    port drops both fields, runs its untiled entry splat, and its disparity
+    is the JAX pipeline's within 5e-3 px; any other field the port lacks
+    still raises."""
+    left, right = _pair(1.0)
+    jcfg = replace(JP.calibrate_capacity(jnp.asarray(left), BASE, pieces=True), unroll=True)
+    assert jcfg.max_pieces is not None and jcfg.tile_px is None
+    dj, out = _run_both((left, right), jcfg)
+    assert out["plans"][0].entry_order is not None
+    dt = out["disparity"].numpy()
+    assert dt.shape == (64, 96) and np.isfinite(dt).all()
+    np.testing.assert_allclose(dt, dj, rtol=0, atol=5e-3)
+    with pytest.raises(ValueError, match="lacks"):
+        config_from_jax({**jcfg.__dict__, "no_such_field": 1})

@@ -18,7 +18,7 @@ from depth_estimation_torch.models.serving import StereoServer
 from depth_estimation_torch.parallel.mesh import distributed_init, make_mesh
 
 CFG = dict(num_disp=8, niters=2)
-CALIBRATED = ("max_vertices", "sort_mode", "tile_px", "tile_u", "max_pieces")
+CALIBRATED = ("max_vertices", "sort_mode", "tile_px", "tile_u")
 DISP_ATOL = 5e-3  # px
 DATA = 2
 

@@ -123,7 +123,7 @@ def test_launch_counts_read_and_zero_every_kernel():
         for i, fn in enumerate(K.KERNELS.values()):
             fn.launches = i + 1
         assert K.launch_counts() == {name: i + 1 for i, name in enumerate(K.KERNELS)}
-        assert set(K.KERNELS) == {"K1", "K1w", "K1x", "K1xx", "K1w_ffma"}
+        assert set(K.KERNELS) == {"K1", "K1w", "K1x", "K1xx"}
         K.zero_launch_counts()
         assert set(K.launch_counts().values()) == {0}
     finally:

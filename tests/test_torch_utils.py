@@ -46,9 +46,10 @@ def test_chain_timer_returns_nan_on_a_non_positive_difference(monkeypatch):
 
 
 def test_chain_timer_differences_the_chains(monkeypatch):
-    """t(1) = 2 s and t(5) = 10 s give (10 − 2) / 4 = 2 s a step; the
-    steps really run, 1 + 1 + 5 times."""
-    ticks = iter([0.0, 2.0, 0.0, 10.0])
+    """The least of the 1-chains' times, 2 s, and of the 5-chains', 10 s,
+    run in turns, give (10 − 2) / 4 = 2 s a step; the steps really run,
+    1 + 3·1 + 3·5 times."""
+    ticks = iter([0.0, 3.0, 0.0, 12.0, 0.0, 2.0, 0.0, 10.0, 0.0, 2.5, 0.0, 11.0])
     monkeypatch.setattr(timing.time, "perf_counter", lambda: next(ticks))
     calls = []
 
@@ -56,8 +57,20 @@ def test_chain_timer_differences_the_chains(monkeypatch):
         calls.append(1)
         return acc + torch.ones(3).sum()
 
+    assert timing.RUNS == 3
     assert timing.chain_timer(step, reps=5, device="cpu") == 2.0
-    assert len(calls) == 7
+    assert len(calls) == 19
+
+
+@pytest.mark.parametrize("timer", ["chain_timer", "loop_timer"])
+def test_one_slow_short_chain_leaves_the_time_finite(monkeypatch, timer):
+    """A 1-chain slowed past the 3-chains' time (a host preempted mid-run)
+    is outvoted by the other 1-chains: (3 − 1) / 2 = 1 s a step, not NaN.
+    (loop_timer's untimed warm-up reads the clock too.)"""
+    warm = [0.0, 1.0] if timer == "loop_timer" else []
+    ticks = iter(warm + [0.0, 5.0, 0.0, 3.0] + [0.0, 1.0, 0.0, 3.0] * 2)
+    monkeypatch.setattr(timing.time, "perf_counter", lambda: next(ticks))
+    assert getattr(timing, timer)(lambda acc: acc + 1, reps=3, device="cpu") == 1.0
 
 
 def test_scalarize_and_jitter_match_jax():
