@@ -144,9 +144,11 @@ fails), holds each kernel against its plain PyTorch version on the card
 and 256 labels, at the edges of its padded widths and at fullres128's
 shape; K1x at 257, 288, 300, 320, 384, 512, 1000 and 1024 labels; K1xx,
 which serves every L above 1024, at 1025, 1088, 1100, 1536, 2048 and 4099
-and at phase M's shape; the lattice apply's slice bit for bit and splat within a
-bf16 rounding at fullres128's shape, (2088960, 128) bf16 through K's frame's
-plan of 131072 slots, and K's run launches each 5 times; the stereo cost
+and at phase M's shape; the lattice apply's slice and shifted slice bit for
+bit and splat within a bf16 rounding at fullres128's shape, (2088960, 128)
+bf16 through K's frame's plan of 131072 slots, and at wide320's, (1473108,
+320) through L's, and K's and L's runs launch each, the shifted slice among
+them, 5 times; the stereo cost
 volume at K's and L's frames against float64 and its plain version) and
 times them
 (the lattice kernels there beside their byte bounds; K1 also at phase L's rows with 64
@@ -241,8 +243,8 @@ J_MODEL = dict(num_classes=4, blocks=(2, 2, 2, 2), fpn_dim=128, num_proposals=32
 # (`tools.bench_suite.lattice_cfg`); its 192×256 crop against the port's CPU
 # run in float32
 FULL_H, FULL_W, FULL_LABELS, FULL_MAX_DISP = 1088, 1920, 128, 96
-# the lattice capacity K's calibration gives its frame (headroom 3), at which
-# the lattice apply's kernels are timed
+# the lattice capacity K's calibration gives its frame (headroom 3), and L's
+# gives its; at it the lattice apply's kernels are timed on both frames
 FULL_CAPACITY = 131072
 CROP_H, CROP_W = 192, 256
 # the label counts at which K1w is held against its plain version, and the
@@ -422,8 +424,9 @@ def ptxas_report(K) -> list[dict]:
     its Mu-tiling pass, no bounds), K1xx (<float or bfloat16>, (its
     threads, 1); and its Mu-tiling pass), the lattice apply's splat and slice (<float or double
     weights, float, bfloat16 or double values, 1 or 8 values a lane>, 256
-    threads and 2 to 8 blocks an SM) and the cost volume (<1 to 4
-    channels, window radius 0 to 8>, (256, 2) to r = 4, (256, 1) above),
+    threads and 2 to 8 blocks an SM; the shifted slice <1 or 8 values a
+    lane, how a row's sums are kept>, 6 or 8 blocks) and the cost volume
+    (<1 to 4 channels, window radius 0 to 8>, (256, 2) to r = 4, (256, 1) above),
     each held to its own register cap,
     with the dynamic shared
     memory of K1's launch at the flagship row count, of K1w's at
@@ -481,6 +484,13 @@ def ptxas_report(K) -> list[dict]:
                 lattice.get((kind, w, v, vec)), 0, register_cap(256, lattice_blocks(kind, w, v)))
                for kind in ("splat", "slice") for w in "fd" for v in ("f", "13__nv_bfloat16", "d")
                for vec in "18"]
+    # the shifted slice (bf16 values): <values a lane, how a row's sums are
+    # kept (one pass in registers, staged in shared memory)>, at 8 and 6
+    # blocks an SM
+    shifted = _ptxas("lattice_apply", r"lattice_slice_shifted_kernelILi(\d)ELi(\d)E")
+    wanted += [("lattice slice shifted", f"vec={vec} keep={keep}", "bf16",
+                shifted.get((vec, keep)), 0, register_cap(256, blocks))
+               for vec in "18" for keep, blocks in (("0", 8), ("1", 6))]
     # the cost volume: <channels, window radius>, 1 or 3 channels and radii
     # 0 to 8, (256, 2) up to r = 4 and (256, 1) above, at fullres128's geometry
     from depth_estimation_torch.ops.cuda.costvolume import costvolume_geometry
@@ -602,69 +612,104 @@ def time_fused_update(K, n: int, L: int, dtype, on_device: bool = False,
 
 
 def time_lattice_apply(reps: int = 100, plain_reps: int = 10) -> dict:
-    """The untiled splat and slice at fullres128's shape: the plan of K's
-    left frame (1088×1920, the 5-D guide, FULL_CAPACITY slots), bf16 values
-    at FULL_LABELS. Checks the slice kernel bit for bit against its plain
-    version on the card and the splat within one bf16 rounding of its plain
-    version (both f32 sums, in other orders, rounded to bf16), each kernel's
-    launch counted once; then times each wrapper (median of `reps`
-    launches; the plain versions `plain_reps`), L2 flushed before each,
-    against its byte bound: every input read once and the output written
-    once in its dtype (the splat: src, the sorted entries and their weights,
-    the slots' row and chunk starts and the bf16 table; the slice: the bf16
-    table, the int64 slots, the weights and the f32 output)."""
+    """The untiled splat, slice and shifted slice at fullres128's shape and
+    at wide320's: the plan of K's left frame (1088×1920) and of L's
+    (994×1482), the 5-D guide, FULL_CAPACITY slots each, bf16 values at
+    FULL_LABELS and at MID_LABELS. At each, checks the slice kernel bit for
+    bit against its plain version on the card, the shifted slice (one
+    column pass in registers at K's rows, two staged in shared memory at
+    L's) bit for bit against `shift_rows_bf16` of that slice, and the splat
+    within one bf16 rounding of its plain version (both f32 sums, in other
+    orders, rounded to bf16), each kernel's launch counted once and the
+    shifted slice's on its own count; then times each wrapper (median of
+    `reps` launches; the plain versions `plain_reps`; the shifted slice's
+    plain version is the plain slice, its shift and cast, and `chain_ms`
+    the f32 slice kernel, its `amin` and `sub`, which the fused loop ran
+    before), L2 flushed before each, against its byte bound: every input
+    read once and the output written once in its dtype (the splat: src,
+    the sorted entries and their weights, the slots' row and chunk starts
+    and the bf16 table; the slice: the bf16 table, the int64 slots, the
+    weights and the f32 output, bf16 for the shifted slice)."""
     from depth_estimation_torch.crf.guides import stack_guide
     from depth_estimation_torch.data.synthetic import make_stereo_pair
     from depth_estimation_torch.ops import permutohedral as P
     from depth_estimation_torch.ops.cuda import lattice as LK
 
-    left, _, _ = make_stereo_pair(np.random.RandomState(0), FULL_H, FULL_W, num_layers=6,
-                                  max_disp=FULL_MAX_DISP)
-    guide = stack_guide(torch.as_tensor(left.astype(np.float32), device=DEV), 0.1, 0.1)
-    plan = P.build_plan(guide.reshape(FULL_H * FULL_W, -1), max_vertices=FULL_CAPACITY)
-    n, d1 = plan.bary.shape
-    L, C, N = FULL_LABELS, plan.capacity, n * d1
-    g = torch.Generator(device=DEV).manual_seed(7)
-    src = torch.rand(n, L, generator=g, device=DEV).to(torch.bfloat16)
-    scale = LK.slice_scale(plan.d)
-    before = LK.launch_counts()
-    entries = (plan.entry_order, plan.entry_weight, plan.slot_start, plan.chunk_start)
-    table = LK.lattice_splat(src, *entries)
-    vals = P._blur(plan, table, False)
-    out = LK.lattice_slice(vals, plan.slot, plan.bary, scale)
-    torch.cuda.synchronize()
-    launched = {k: v - before[k] for k, v in LK.launch_counts().items()}
-    check(launched == {"splat": 1, "slice": 1}, f"lattice kernels launched {launched}")
-    check(torch.equal(out, LK.slice_untiled_reference(plan, vals)),
-          "the slice kernel differs from its plain version")
-    plain_table = LK.splat_untiled_reference(plan, src).float()
-    gap = (table.float() - plain_table).abs()
-    bad = int((gap > 2.0 ** -7 * plain_table.abs() + 1e-6 * float(plain_table.abs().max())).sum())
-    check(bad == 0, f"{bad} splat values differ from the plain version by more than a bf16 ulp")
+    res = {}
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEV)
-    runs = {"splat": (lambda: LK.lattice_splat(src, *entries),
-                      lambda: LK.splat_untiled_reference(plan, src),
-                      n * L * 2 + N * 4 + N * 4 + 2 * (C + 1) * 4 + (C + 1) * L * 2),
-            "slice": (lambda: LK.lattice_slice(vals, plan.slot, plan.bary, scale),
-                      lambda: LK.slice_untiled_reference(plan, vals),
-                      (C + 1) * L * 2 + N * 8 + N * 4 + n * L * 4)}
-    res = {"shape": [n, L], "capacity": C, "num_valid": int(plan.num_valid), "dtype": "bf16",
-           "splat_max_abs_err": float(gap.max()), "reps": reps, "plain_reps": plain_reps}
-    for name, (kernel, plain, nbytes) in runs.items():
+    for tag, (h, w, L, max_disp) in {"K": (FULL_H, FULL_W, FULL_LABELS, FULL_MAX_DISP),
+                                     "L": (MID_H, MID_W, MID_LABELS, MID_LABELS - 2)}.items():
+        left, _, _ = make_stereo_pair(np.random.RandomState(0), h, w, num_layers=6,
+                                      max_disp=max_disp)
+        guide = stack_guide(torch.as_tensor(left.astype(np.float32), device=DEV), 0.1, 0.1)
+        plan = P.build_plan(guide.reshape(h * w, -1), max_vertices=FULL_CAPACITY)
+        n, d1 = plan.bary.shape
+        C, N = plan.capacity, n * d1
+        g = torch.Generator(device=DEV).manual_seed(7)
+        src = torch.rand(n, L, generator=g, device=DEV).to(torch.bfloat16)
+        scale = LK.slice_scale(plan.d)
+        before, shifted_before = LK.launch_counts(), LK.lattice_slice.shifted_launches
+        entries = (plan.entry_order, plan.entry_weight, plan.slot_start, plan.chunk_start)
+        table = LK.lattice_splat(src, *entries)
+        vals = P._blur(plan, table, False)
+        out = LK.lattice_slice(vals, plan.slot, plan.bary, scale)
+        shifted = LK.lattice_slice(vals, plan.slot, plan.bary, scale, shifted=True)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in LK.launch_counts().items()}
+        launched_shifted = LK.lattice_slice.shifted_launches - shifted_before
+        check(launched == {"splat": 1, "slice": 2} and launched_shifted == 1,
+              f"{tag}: lattice kernels launched {launched}, shifted slice {launched_shifted}")
+        check(torch.equal(out, LK.slice_untiled_reference(plan, vals)),
+              f"{tag}: the slice kernel differs from its plain version")
+        check(torch.equal(shifted, LK.shift_rows_bf16(out)),
+              f"{tag}: the shifted slice kernel differs from the slice, its shift and cast")
+        plain_table = LK.splat_untiled_reference(plan, src).float()
+        gap = (table.float() - plain_table).abs()
+        bad = int((gap > 2.0 ** -7 * plain_table.abs()
+                   + 1e-6 * float(plain_table.abs().max())).sum())
+        check(bad == 0, f"{tag}: {bad} splat values differ from the plain version by more than "
+              "a bf16 ulp")
+        del out, shifted, plain_table
+        slice_in = (C + 1) * L * 2 + N * 8 + N * 4
+        runs = {"splat": (lambda: LK.lattice_splat(src, *entries),
+                          lambda: LK.splat_untiled_reference(plan, src),
+                          n * L * 2 + N * 4 + N * 4 + 2 * (C + 1) * 4 + (C + 1) * L * 2),
+                "slice": (lambda: LK.lattice_slice(vals, plan.slot, plan.bary, scale),
+                          lambda: LK.slice_untiled_reference(plan, vals), slice_in + n * L * 4),
+                "slice_shifted": (lambda: LK.lattice_slice(vals, plan.slot, plan.bary, scale,
+                                                           shifted=True),
+                                  lambda: LK.shift_rows_bf16(LK.slice_untiled_reference(plan,
+                                                                                        vals)),
+                                  slice_in + n * L * 2)}
+        res[tag] = {"shape": [n, L], "capacity": C, "num_valid": int(plan.num_valid),
+                    "dtype": "bf16", "splat_max_abs_err": float(gap.max()), "reps": reps,
+                    "plain_reps": plain_reps}
+        for name, (kernel, plain, nbytes) in runs.items():
+            for _ in range(3):
+                kernel()
+                plain()
+            ms = median_ms(kernel, reps, flush)
+            plain_ms = median_ms(plain, plain_reps, flush)
+            bound_ms = nbytes / PEAK_BYTES_S * 1e3
+            res[tag][name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bytes": nbytes, "bound_share": bound_ms / ms}
+            log(f"  time lattice {name} {tag} n={n} L={L} C={C} bf16: kernel {ms * 1e3:.2f} us, "
+                f"plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+                f"({nbytes / 1e6:.1f} MB; {100 * bound_ms / ms:.1f}% of it) (medians of {reps} "
+                f"and {plain_reps} launches)")
+
+        def chain():
+            return LK.shift_rows_bf16(LK.lattice_slice(vals, plan.slot, plan.bary, scale))
+
         for _ in range(3):
-            kernel()
-            plain()
-        ms = median_ms(kernel, reps, flush)
-        plain_ms = median_ms(plain, plain_reps, flush)
-        bound_ms = nbytes / PEAK_BYTES_S * 1e3
-        res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bytes": nbytes,
-                     "bound_share": bound_ms / ms}
-        log(f"  time lattice {name} n={n} L={L} C={C} bf16: kernel {ms * 1e3:.2f} us, plain "
-            f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.1f} MB; "
-            f"{100 * bound_ms / ms:.1f}% of it) (medians of {reps} and {plain_reps} launches)")
-    log(f"  lattice plan: {int(plan.num_valid)} of {C} slots, longest slot "
-        f"{int((plan.slot_start[1:] - plan.slot_start[:-1]).max())} entries; splat max |kernel - "
-        f"plain| {res['splat_max_abs_err']:.3g}")
+            chain()
+        chain_ms = res[tag]["slice_shifted"]["chain_ms"] = median_ms(chain, reps, flush)
+        log(f"  time lattice slice_shifted {tag}: the f32 slice kernel, its amin and sub "
+            f"{chain_ms * 1e3:.2f} us (median of {reps})")
+        log(f"  lattice plan {tag}: {int(plan.num_valid)} of {C} slots, longest slot "
+            f"{int((plan.slot_start[1:] - plan.slot_start[:-1]).max())} entries; splat max "
+            f"|kernel - plain| {res[tag]['splat_max_abs_err']:.3g}")
+        del src, table, vals, plan, entries, runs
     return res
 
 
@@ -1703,15 +1748,17 @@ def run_fullres() -> dict:
     first_s = time.perf_counter() - t0
     got = launches()
     k1, k1w = got["K1"], got["K1w"]
-    lattice = LK.launch_counts()
+    lattice = {**LK.launch_counts(), "slice_shifted": LK.lattice_slice.shifted_launches}
     costvolume = CVK.cost_volume_kernel.launches
     peak = torch.cuda.max_memory_allocated()
     log(f"{tag}: first run {first_s:.2f} s; launches in one run: {got}, lattice {lattice}, "
         f"cost volume {costvolume}; peak device memory {peak / 2**30:.2f} GiB")
     only_launched("K1w", NITERS)
     check(costvolume == 1, f"cost volume kernel launched {costvolume} times, want 1")
-    # an untiled plan: each apply's splat and slice run the lattice kernels
-    check(cfg.tile_px is not None or lattice == {"splat": NITERS, "slice": NITERS},
+    # an untiled plan: each apply's splat and slice run the lattice kernels,
+    # the slice as the shifted slice (the bf16 message)
+    check(cfg.tile_px is not None
+          or lattice == {"splat": NITERS, "slice": NITERS, "slice_shifted": NITERS},
           f"lattice kernels launched {lattice}, want {NITERS} of each")
     plan = out["plans"][0]
     num_valid = int(plan.num_valid)
@@ -1827,7 +1874,8 @@ def run_fullres() -> dict:
 
 def run_wide_disparity() -> dict:
     """L: a half-size Middlebury frame at 320 labels with bf16 state and the
-    fused update: 5 launches of K1x and none of the other kernels, a finite
+    fused update: 5 launches of K1x and none of the other kernels, 5 of the
+    lattice's splat and of its shifted slice (an untiled plan), a finite
     disparity, within BF16_MEAN_TOL of the same run with K1x's plain version
     in its place, the fused loop within DISP_ATOL of the unfused one in
     float32, the 96x384 crop in float32 against the CPU; the warm pipeline,
@@ -1853,21 +1901,29 @@ def run_wide_disparity() -> dict:
 
     # the main path: launch counts read from zero just around one run
     from depth_estimation_torch.ops.cuda import costvolume as CVK
+    from depth_estimation_torch.ops.cuda import lattice as LK
 
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
+    LK.zero_launch_counts()
     CVK.cost_volume_kernel.launches = 0
     t0 = time.perf_counter()
     out = crf_stereo_infer(left, right, cfg, device=DEV)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     got = launches()
+    lattice = {**LK.launch_counts(), "slice_shifted": LK.lattice_slice.shifted_launches}
     costvolume = CVK.cost_volume_kernel.launches
     peak = torch.cuda.max_memory_allocated()
-    log(f"{tag}: first run {first_s:.2f} s; launches in one run: {got}, cost volume "
-        f"{costvolume}; peak device memory {peak / 2**30:.2f} GiB")
+    log(f"{tag}: first run {first_s:.2f} s; launches in one run: {got}, lattice {lattice}, "
+        f"cost volume {costvolume}; peak device memory {peak / 2**30:.2f} GiB")
     k1x = only_launched("K1x", NITERS)
     check(costvolume == 1, f"cost volume kernel launched {costvolume} times, want 1")
+    # an untiled plan: each apply's splat and slice, the shifted slice, run
+    # the lattice kernels
+    check(cfg.tile_px is not None
+          or lattice == {"splat": NITERS, "slice": NITERS, "slice_shifted": NITERS},
+          f"lattice kernels launched {lattice}, want {NITERS} of each")
     plan = out["plans"][0]
     overflow = 0 if plan.tile_overflow is None else int(plan.tile_overflow)
     check(overflow == 0 and int(plan.num_valid) <= cfg.max_vertices, "capacity overflow")
@@ -1938,7 +1994,7 @@ def run_wide_disparity() -> dict:
             "max_vertices": cfg.max_vertices, "sort_mode": cfg.sort_mode, "peak_bytes": peak,
             "mean_max_abs_diff": diffs, "crop_max_abs_diff_cpu": crop_diff,
             "crop_launches_k1x": crop_k1x, "launches_costvolume": costvolume,
-            "crop_launches_costvolume": crop_costvolume}
+            "crop_launches_costvolume": crop_costvolume, "launches_lattice": lattice}
 
 
 def counting_flips(update, tally: dict, key: str):
@@ -2695,12 +2751,14 @@ def main() -> int:
     lattice = {
         "name": "lattice_splat / lattice_slice", "route": "cuda",
         "source": "depth_estimation_torch/csrc/lattice_apply.cu", "replaces": None,
-        "launches_k": k["launches_lattice"], **lat,
+        "launches_k": k["launches_lattice"], "launches_l": wd["launches_lattice"], **lat,
         "design": "slice: a team of lanes a pixel gathers its d+1 rows of the L2-resident table, "
                   "the plain version's order with separately rounded products and sums; splat: "
                   "a segmented reduce over the entries sorted by slot, each slot cut into chunks "
                   "of 256 entries, a team a chunk, a second pass adding a slot's chunk sums in "
-                  "order (deterministic, no atomics)"}
+                  "order (deterministic, no atomics); shifted slice (the fused bf16 loop's "
+                  "message): the slice's sums kept in registers (one column pass) or shared "
+                  "memory, the row's minimum by a team min-reduction (redux.sync), bf16 stores"}
     costvolume = {
         "name": "costvolume_reflect", "route": "cuda",
         "source": "depth_estimation_torch/csrc/costvolume.cu", "replaces": None,

@@ -38,6 +38,26 @@
 // 0.37 ms at 3.35 TB/s; the table (33.5 MB in bf16) sits in L2, so its
 // d+1 gathers a pixel are L2 traffic.
 //
+// Shifted slice (lattice_slice_shifted_launch): the same sums, for a caller
+// that wants each pixel's row only up to a constant, rounded to bf16 (the
+// mean field's message, which a softmax reads). The team keeps its pixel's
+// scaled sums, in registers where a row takes one column pass (as at
+// fullres128), else in shared memory (a lane's own slots, so no barrier),
+// takes the row's minimum (a tree a lane, then one integer min-reduction,
+// redux.sync, over the team's lanes of one warp), subtracts it in f32 and
+// stores bf16 rounded to nearest even, 16-byte words where `vec` is 8. The
+// minimum is exact and the difference one f32 rounding, so the result is
+// bit for bit the f32 slice followed by `torch.sub(S, S.amin(1,
+// keepdim=True), out=<bf16>)` (a NaN makes its row NaN there too). A
+// one-pass row's registers are the f32 slice's, for the same blocks an SM;
+// staged rows take 6 blocks (a second pass held in registers, 16 values a
+// lane, took 4 and was slower; PERF.md). A staged row past 48 KB of
+// shared memory a block (1536 values) opts into more, up to the H100's
+// 227 KB (7168 values at 8 values a lane, 7264 at 1); wider rows are
+// refused. f32 weights and bf16 values only. Bound: the slice's bytes
+// with the output in bf16, about 0.72 GB at fullres128, 0.21 ms (the f32 output's 1.25 GB, 0.37 ms); at wide320's
+// (1473108, 320) 1.13 GB, 0.34 ms (2.08 GB, 0.62 ms).
+//
 // Splat: a segmented reduce over the entries sorted by slot (the plan's
 // `entry_order`, entry = r * n + i, its weights in the same order,
 // `entry_weight`, `slot_start`, the CSR row starts, and `chunk_start`, which
@@ -284,6 +304,31 @@ lattice_splat_join_kernel(const typename SplatAcc<V>::T* __restrict__ part,
   }
 }
 
+// One column run of pixel i's row: the d+1 rows of vals at [col, col +
+// VEC) summed in the plain version's order, r = 0..d, with separately
+// rounded products and sums, then times sc.
+template <typename W, typename V, typename A, int VEC>
+__device__ __forceinline__ void slice_sum(const V* __restrict__ vals,
+                                          const long long* __restrict__ slot,
+                                          const W* __restrict__ bary, int i, int L, int d1,
+                                          int ss_i, int ss_r, int sb_i, int sb_r, int col, A sc,
+                                          A (&acc)[VEC]) {
+  for (int r = 0; r < d1; ++r) {
+    // the slot's low word: slots are below 2^31 (the wrapper checks)
+    const int c = __ldg(reinterpret_cast<const int*>(slot + (i * ss_i + r * ss_r)));
+    const A w = (A)__ldg(bary + (i * sb_i + r * sb_r));
+    A v[VEC];
+    load_row<A, V, VEC>(vals + (size_t)c * L + col, v);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const A p = mul_rn(w, v[k]);
+      acc[k] = r == 0 ? p : add_rn(acc[k], p);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = mul_rn(acc[k], sc);
+}
+
 template <typename W, typename V, int VEC>
 __global__ void __launch_bounds__(kThreads, (Blocks<W, V, typename SliceAcc<W, V>::T>::slice))
 lattice_slice_kernel(const V* __restrict__ vals, const long long* __restrict__ slot,
@@ -300,21 +345,133 @@ lattice_slice_kernel(const V* __restrict__ vals, const long long* __restrict__ s
     const int col = (pass * team + lane) * VEC;
     if (col >= L) break;
     A acc[VEC];
-    for (int r = 0; r < d1; ++r) {
-      // the slot's low word: slots are below 2^31 (the wrapper checks)
-      const int c = __ldg(reinterpret_cast<const int*>(slot + (i * ss_i + r * ss_r)));
-      const A w = (A)__ldg(bary + (i * sb_i + r * sb_r));
-      A v[VEC];
-      load_row<A, V, VEC>(vals + (size_t)c * L + col, v);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const A p = mul_rn(w, v[k]);
-        acc[k] = r == 0 ? p : add_rn(acc[k], p);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = mul_rn(acc[k], sc);
+    slice_sum<W, V, A, VEC>(vals, slot, bary, i, L, d1, ss_i, ss_r, sb_i, sb_r, col, sc, acc);
     store_row<A, VEC>(out + (size_t)i * L + col, acc);
+  }
+}
+
+// the smaller of a and b, NaN where either is (as torch.amin)
+__device__ __forceinline__ float min_nan(float a, float b) { return a < b || a != a ? a : b; }
+
+// the least of a lane's VEC sums, as a tree
+template <int VEC>
+__device__ __forceinline__ float lane_min(const float (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    return v[0];
+  } else {
+    const float a = min_nan(min_nan(v[0], v[1]), min_nan(v[2], v[3]));
+    const float b = min_nan(min_nan(v[4], v[5]), min_nan(v[6], v[7]));
+    return min_nan(a, b);
+  }
+}
+
+// The least of `lo` over the lanes in `mask` (a team: aligned lanes of one
+// warp), NaN where any is: one integer min-reduction of the floats' bits,
+// ordered as signed integers once a negative's magnitude bits are flipped.
+__device__ __forceinline__ float team_min(float lo, unsigned mask) {
+  const int b = __float_as_int(lo);
+  const int m = __reduce_min_sync(mask, b >= 0 ? b : b ^ 0x7fffffff);
+  if (__any_sync(mask, lo != lo)) return __int_as_float(0x7fffffff);
+  return __int_as_float(m >= 0 ? m : m ^ 0x7fffffff);
+}
+
+// (v - lo) rounded to bf16, to nearest even, into VEC values of a row
+template <int VEC>
+__device__ __forceinline__ void store_shifted(__nv_bfloat16* p, const float (&v)[VEC], float lo) {
+  if constexpr (VEC == 1) {
+    p[0] = __float2bfloat16_rn(__fsub_rn(v[0], lo));
+  } else {
+    unsigned words[VEC / 2];
+#pragma unroll
+    for (int k = 0; k < VEC / 2; ++k) {
+      const __nv_bfloat162 h =
+          __floats2bfloat162_rn(__fsub_rn(v[2 * k], lo), __fsub_rn(v[2 * k + 1], lo));
+      words[k] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(words[0], words[1], words[2], words[3]);
+  }
+}
+
+// A run's VEC sums of a lane to and from its slot in shared memory: two
+// float4 words, or one float, a lane a run ([run][word][kThreads]).
+template <int VEC>
+__device__ __forceinline__ void stage_put(float4* stage, int p, const float (&acc)[VEC]) {
+  if constexpr (VEC == 1) {
+    reinterpret_cast<float*>(stage)[p * kThreads + threadIdx.x] = acc[0];
+  } else {
+    stage[(2 * p) * kThreads + threadIdx.x] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    stage[(2 * p + 1) * kThreads + threadIdx.x] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void stage_get(const float4* stage, int p, float (&acc)[VEC]) {
+  if constexpr (VEC == 1) {
+    acc[0] = reinterpret_cast<const float*>(stage)[p * kThreads + threadIdx.x];
+  } else {
+    const float4 a = stage[(2 * p) * kThreads + threadIdx.x];
+    const float4 b = stage[(2 * p + 1) * kThreads + threadIdx.x];
+    acc[0] = a.x; acc[1] = a.y; acc[2] = a.z; acc[3] = a.w;
+    acc[4] = b.x; acc[5] = b.y; acc[6] = b.z; acc[7] = b.w;
+  }
+}
+
+// how the shifted slice keeps a row's sums until its minimum is known
+enum Keep { kOnePass = 0, kStaged = 1 };
+
+// shared memory a block without opting in, and the H100's opt-in limit
+constexpr size_t kDefaultSmem = 48 << 10;
+constexpr size_t kMaxSmem = 232448;
+
+// blocks an SM of the shifted slice, as many as its registers allow
+// without spills: the bf16 slice's 8 (32 registers) where a row takes one
+// pass, 6 (40) for staged rows
+template <int KEEP>
+struct ShiftedBlocks {
+  static constexpr int value = KEEP == kOnePass ? 8 : 6;
+};
+
+// The shifted slice. A lane sums its column runs one after the other,
+// keeping the row's least value; then the team's minimum, and each run
+// stored less it in bf16. Where a row takes one pass the run waits in
+// registers (kOnePass); else each run waits in shared memory, a lane's own
+// slots, so no barrier (kStaged).
+template <int VEC, int KEEP>
+__global__ void __launch_bounds__(kThreads, (ShiftedBlocks<KEEP>::value))
+lattice_slice_shifted_kernel(const __nv_bfloat16* __restrict__ vals,
+                             const long long* __restrict__ slot,
+                             const float* __restrict__ bary, __nv_bfloat16* __restrict__ out,
+                             int n, int L, int d1, int ss_i, int ss_r, int sb_i, int sb_r,
+                             int team, int passes, double scale) {
+  extern __shared__ float4 stage[];
+  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int i = (int)(g / team);  // this team's pixel: its lanes end together
+  const int lane = (int)(g - (long long)i * team);
+  if (i >= n) return;
+  const float sc = (float)scale;
+  const unsigned first = threadIdx.x & 31 & ~(unsigned)(team - 1);
+  const unsigned mask = team == 32 ? 0xffffffffu : ((1u << team) - 1) << first;
+  float acc[VEC];
+  float lo = __int_as_float(0x7f800000);  // +inf
+  for (int p = 0; p < (KEEP == kOnePass ? 1 : passes); ++p) {
+    const int col = (p * team + lane) * VEC;
+    if (col >= L) break;
+    slice_sum<float, __nv_bfloat16, float, VEC>(vals, slot, bary, i, L, d1, ss_i, ss_r, sb_i,
+                                                sb_r, col, sc, acc);
+    lo = min_nan(lo, lane_min<VEC>(acc));
+    if constexpr (KEEP == kStaged) stage_put<VEC>(stage, p, acc);
+  }
+  lo = team_min(lo, mask);
+  __nv_bfloat16* row = out + (size_t)i * L;
+  if constexpr (KEEP == kOnePass) {
+    if (lane * VEC < L) store_shifted<VEC>(row + lane * VEC, acc, lo);
+  } else {
+    for (int p = 0; p < passes; ++p) {
+      const int col = (p * team + lane) * VEC;
+      if (col >= L) break;
+      stage_get<VEC>(stage, p, acc);
+      store_shifted<VEC>(row + col, acc, lo);
+    }
   }
 }
 
@@ -424,4 +581,50 @@ extern "C" int lattice_slice_launch(const void* vals, const void* slot, const vo
   if (wdt == 2 && vdt == 2) return (int)LATTICE_SLICE(double, double);
 #undef LATTICE_SLICE
   return (int)cudaErrorInvalidValue;
+}
+
+// One shifted slice launch; a staged row past kDefaultSmem opts into more.
+template <int VEC, int KEEP>
+cudaError_t launch_shifted(const __nv_bfloat16* vals, const long long* slot, const float* bary,
+                           __nv_bfloat16* out, int n, int L, int d1, int ss_i, int ss_r, int sb_i,
+                           int sb_r, int team, int passes, long long grid, double scale,
+                           size_t smem, cudaStream_t st) {
+  auto kernel = lattice_slice_shifted_kernel<VEC, KEEP>;
+  if (smem > kDefaultSmem) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<(unsigned)grid, kThreads, smem, st>>>(vals, slot, bary, out, n, L, d1, ss_i, ss_r,
+                                                 sb_i, sb_r, team, passes, scale);
+  return cudaGetLastError();
+}
+
+// The shifted slice: as lattice_slice_launch into a bf16 `out`, each row
+// shifted to a minimum of 0 before it is rounded; f32 weights (wdt 0) and
+// bf16 values (vdt 1) only, and rows whose staged sums fit kMaxSmem.
+extern "C" int lattice_slice_shifted_launch(const void* vals, const void* slot, const void* bary,
+                                            void* out, int n, int L, int d1, int ss_i, int ss_r,
+                                            int sb_i, int sb_r, int wdt, int vdt, int vec,
+                                            int team, int passes, long long grid, double scale,
+                                            void* stream) {
+  const size_t smem = passes == 1 ? 0 : (size_t)passes * kThreads * vec * 4;
+  if (n <= 0 || L <= 0 || d1 <= 0 || wdt != 0 || vdt != 1 ||
+      !geometry_ok(n, L, vec, team, passes, grid) || smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const auto* v = static_cast<const __nv_bfloat16*>(vals);
+  const auto* sl = static_cast<const long long*>(slot);
+  const auto* b = static_cast<const float*>(bary);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define LATTICE_SLICE_SHIFTED(VEC, KEEP) \
+  launch_shifted<VEC, KEEP>(v, sl, b, o, n, L, d1, ss_i, ss_r, sb_i, sb_r, team, passes, grid, \
+                            scale, smem, st)
+  cudaError_t err;
+  if (vec == 8)
+    err = passes == 1 ? LATTICE_SLICE_SHIFTED(8, kOnePass) : LATTICE_SLICE_SHIFTED(8, kStaged);
+  else
+    err = passes == 1 ? LATTICE_SLICE_SHIFTED(1, kOnePass) : LATTICE_SLICE_SHIFTED(1, kStaged);
+#undef LATTICE_SLICE_SHIFTED
+  return (int)err;
 }

@@ -22,6 +22,7 @@ from ..crf.compat import charbonnier2, compatibility_matrix
 from ..crf.guides import stack_guide
 from ..crf.meanfield import _matmul_like, mean_field_infer
 from ..ops.costvolume import cost_volume, expected_disparity
+from ..ops.cuda.lattice import shift_rows_bf16
 from ..ops.cuda.meanfield import fused_energy_update
 from ..ops.dense_gaussian import dense_gaussian_filter
 from ..ops.permutohedral import (apply_plan, build_plan, rotation_matrices,
@@ -175,13 +176,14 @@ def crf_stereo_infer(left, right, cfg: CRFStereoConfig, device=None) -> dict:
             for m, R in enumerate(rotation_matrices(ref.shape[1], cfg.num_lattices))
         ]
 
-        def filt(x, shift_rows=False):
-            out = apply_plan(plans[0], x, shift_rows=shift_rows)
+        def filt(x, shift_rows=False, shift_out=False):
             if len(plans) == 1:
-                return out
+                return apply_plan(plans[0], x, shift_rows=shift_rows, shift_out=shift_out)
+            out = apply_plan(plans[0], x, shift_rows=shift_rows)
             for p in plans[1:]:
                 out = out + apply_plan(p, x, shift_rows=shift_rows)
-            return out / len(plans)
+            out = out / len(plans)
+            return shift_rows_bf16(out) if shift_out else out
 
         def message_fn(Q):
             return filt(Q) - Q
@@ -203,15 +205,15 @@ def crf_stereo_infer(left, right, cfg: CRFStereoConfig, device=None) -> dict:
         # second blur pass (`apply_plan`'s shift_rows). The softmax, and so
         # Q, C' and the disparity, ignore a constant a row, while bf16's
         # error grows with the magnitude: at 994x1482 and 320 labels S
-        # reaches 3.5e6 and its rows' minima 6e4, where a bf16 step is 256
+        # reaches 3.5e6 and its rows' minima 6e4, where a bf16 step is 256.
+        # Through one plan the apply's slice writes the shifted bf16 S
+        # itself (`shift_out`), with the same bits
         narrow = E0_flat.dtype == torch.bfloat16
         C = _matmul_like(torch.softmax(-E0_flat, dim=-1), Mu)
         E = E0_flat
         for _ in range(cfg.niters):
-            S = filt(C, shift_rows=narrow)
-            if narrow:
-                S = torch.sub(S, S.amin(1, keepdim=True), out=torch.empty_like(E0_flat))
-            else:
+            S = filt(C, shift_rows=narrow, shift_out=narrow)
+            if not narrow:
                 S = S.to(E0_flat.dtype).contiguous()
             E, C = fused_energy_update(E0_flat.contiguous(), S, C, Mu.contiguous())
         Q = torch.softmax(-E, dim=-1).float()

@@ -8,7 +8,10 @@ kernels of `csrc/lattice_apply.cu`, each reading its operand in place:
 - the slice (`lattice_slice`) computes S·V by gathering rows: a team of
   lanes a pixel gathers its d+1 rows of the vertex table and sums them in
   the plain version's order with separately rounded products and sums, so
-  it is bit for bit `slice_untiled_reference`;
+  it is bit for bit `slice_untiled_reference`. With `shifted` it writes
+  each row shifted to a minimum of 0 and rounded to bf16, the minimum
+  taken across the team's lanes, bit for bit `shift_rows_bf16` of the f32
+  slice (`slice_untiled_shifted`, the mean field's message);
 - the splat (`lattice_splat`) computes Sᵀ·x as a segmented reduce over the
   entries sorted by slot (the plan's `entry_order`, `entry_weight`,
   `slot_start` and `chunk_start`, built by `build_plan`): each slot's
@@ -28,10 +31,12 @@ a team, column passes, blocks), which the C side re-checks.
 plain version; a CUDA tensor takes the kernel through a
 `torch.autograd.Function` whose backward is the other kernel (the slice
 without the scale for the splat, the splat with it, summing the overflow
-entries into row C, for the slice), or raises. The plan's tensors are
+entries into row C, for the slice), or raises. `slice_untiled_shifted`
+routes alike, without a backward. The plan's tensors are
 constants of both. Each kernel's wrapper counts its launches
-(`lattice_splat.launches`, `lattice_slice.launches`); `launch_counts` reads
-them by kernel name and `zero_launch_counts` sets them to 0.
+(`lattice_splat.launches`, `lattice_slice.launches`, the shifted ones also
+in `lattice_slice.shifted_launches`); `launch_counts` reads the first two by
+kernel name and `zero_launch_counts` sets all three to 0.
 """
 from __future__ import annotations
 
@@ -41,12 +46,16 @@ from dataclasses import dataclass
 import torch
 
 __all__ = ["lattice_splat", "lattice_slice", "splat_untiled", "slice_untiled",
-           "splat_untiled_reference", "slice_untiled_reference", "slice_scale", "apply_geometry",
-           "ApplyGeometry", "KERNELS", "launch_counts", "zero_launch_counts", "THREADS", "CHUNK"]
+           "slice_untiled_shifted", "splat_untiled_reference", "slice_untiled_reference",
+           "shift_rows_bf16", "slice_scale", "apply_geometry", "ApplyGeometry", "KERNELS",
+           "launch_counts", "zero_launch_counts", "THREADS", "CHUNK"]
 
 # the value and weight dtypes the kernels take, by the C side's codes
 _VALUES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _WEIGHTS = {torch.float32: 0, torch.float64: 2}
+# those the shifted slice takes: the bf16 mean field's table, float32 weights
+_SHIFTED_VALUES = {torch.bfloat16: 1}
+_SHIFTED_WEIGHTS = {torch.float32: 0}
 
 # geometry (must agree with csrc/lattice_apply.cu)
 THREADS = 256  # a block
@@ -169,14 +178,19 @@ def lattice_splat(src: torch.Tensor, entry_order: torch.Tensor, entry_weight: to
 
 
 def lattice_slice(vals: torch.Tensor, slot: torch.Tensor, bary: torch.Tensor,
-                  scale: float) -> torch.Tensor:
+                  scale: float, shifted: bool = False) -> torch.Tensor:
     """The slice kernel: (n, L) = scale · Σ_r bary[:, r] · vals[slot[:, r]]
     from the contiguous (C+1, L) vertex table `vals` and the plan's (n, d+1)
     slots and weights (any strides), in the promoted dtype of weights and
     values, bit for bit `slice_untiled_reference`. CUDA tensors only
-    (float32, bfloat16 or float64 values; float32 or float64 weights)."""
-    _on_card("vals", vals, _VALUES)
-    _on_card("bary", bary, _WEIGHTS)
+    (float32, bfloat16 or float64 values; float32 or float64 weights).
+
+    `shifted`: each row shifted to a minimum of 0 and rounded to bfloat16,
+    bit for bit `shift_rows_bf16` of the above (bfloat16 values, float32
+    weights only; rows of up to 7168 values, 7264 at one value a lane:
+    their sums wait in 227 KB of shared memory a block)."""
+    _on_card("vals", vals, _SHIFTED_VALUES if shifted else _VALUES)
+    _on_card("bary", bary, _SHIFTED_WEIGHTS if shifted else _WEIGHTS)
     if vals.dim() != 2 or not vals.is_contiguous():
         raise ValueError(f"vals: want a contiguous (C+1, L), got {tuple(vals.shape)}")
     if (bary.dim() != 2 or slot.dtype != torch.int64 or slot.shape != bary.shape
@@ -191,12 +205,14 @@ def lattice_slice(vals: torch.Tensor, slot: torch.Tensor, bary: torch.Tensor,
     if vals.shape[0] > _INT32_MAX or last > _INT32_MAX:
         raise ValueError(f"{vals.shape[0]} slots, or an offset of {last} into the plan's "
                          "tables: the kernel takes fewer than 2^31")
-    out = torch.empty(n, L, dtype=torch.promote_types(bary.dtype, vals.dtype), device=vals.device)
+    dtype = torch.bfloat16 if shifted else torch.promote_types(bary.dtype, vals.dtype)
+    out = torch.empty(n, L, dtype=dtype, device=vals.device)
     if n == 0 or L == 0:
         return out
     g = apply_geometry(n, L, _vec(L, vals, out))
+    symbol = "lattice_slice_shifted_launch" if shifted else "lattice_slice_launch"
     with torch.cuda.device(vals.device):
-        err = _lib("lattice_slice_launch", _SLICE_ARGS)(
+        err = _lib(symbol, _SLICE_ARGS)(
             vals.data_ptr(), slot.data_ptr(), bary.data_ptr(), out.data_ptr(), n, L, d1,
             slot.stride(0), slot.stride(1), bary.stride(0), bary.stride(1),
             _WEIGHTS[bary.dtype], _VALUES[vals.dtype], g.vec, g.team, g.passes, g.grid,
@@ -204,11 +220,14 @@ def lattice_slice(vals: torch.Tensor, slot: torch.Tensor, bary: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"lattice_slice launch failed: cudaError {err}")
     lattice_slice.launches += 1
+    if shifted:
+        lattice_slice.shifted_launches += 1
     return out
 
 
 lattice_splat.launches = 0  # the splat kernel's launches, for run-time path checks
-lattice_slice.launches = 0  # the slice kernel's launches
+lattice_slice.launches = 0  # the slice kernel's launches, shifted or not
+lattice_slice.shifted_launches = 0  # those of the shifted slice
 
 # the wrappers by kernel name
 KERNELS = {"splat": lattice_splat, "slice": lattice_slice}
@@ -223,6 +242,7 @@ def zero_launch_counts() -> None:
     """Set every lattice kernel's launch count to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
+    lattice_slice.shifted_launches = 0
 
 
 def splat_untiled_reference(plan, src: torch.Tensor) -> torch.Tensor:
@@ -246,6 +266,13 @@ def slice_untiled_reference(plan, vals: torch.Tensor) -> torch.Tensor:
     for r in range(1, plan.d + 1):
         out = out + plan.bary[:, r, None] * vals[plan.slot[:, r]]
     return out * slice_scale(plan.d)
+
+
+def shift_rows_bf16(S: torch.Tensor) -> torch.Tensor:
+    """Each row of S shifted to a minimum of 0 in S's dtype and rounded to
+    bfloat16: the shifted slice's epilogue in plain PyTorch."""
+    out = torch.empty(S.shape, dtype=torch.bfloat16, device=S.device)
+    return torch.sub(S, S.amin(1, keepdim=True), out=out)
 
 
 class _Splat(torch.autograd.Function):
@@ -298,3 +325,17 @@ def slice_untiled(plan, vals: torch.Tensor) -> torch.Tensor:
     if vals.device.type == "cpu":
         return slice_untiled_reference(plan, vals)
     return _Slice.apply(vals.contiguous(), plan)
+
+
+def slice_untiled_shifted(plan, vals: torch.Tensor) -> torch.Tensor:
+    """(C+1, L) vertex values of an untiled plan back to (n, L) pixels, each
+    row shifted to a minimum of 0 and rounded to bfloat16, for a caller that
+    needs no gradient. A CPU tensor takes the plain version (the slice, then
+    `shift_rows_bf16`), a CUDA tensor the shifted slice kernel (or raises);
+    both give the same bits."""
+    if vals.requires_grad:
+        raise ValueError("the shifted slice has no backward: vals must not require a gradient")
+    if vals.device.type == "cpu":
+        return shift_rows_bf16(slice_untiled_reference(plan, vals))
+    return lattice_slice(vals.contiguous(), plan.slot, plan.bary, slice_scale(plan.d),
+                         shifted=True)

@@ -41,8 +41,9 @@ While a torch profiler records, `build_plan`, the splat, blur and slice of
 `apply_plan` and the filter's backward run inside the spans
 `lattice.plan`, `lattice.splat`, `lattice.blur`, `lattice.slice` and
 `lattice.backward`, each plan counts its occupied slots and capacity, and
-`apply_plan` counts its untiled applies (`lattice.apply.untiled`) and those
-whose splat and slice both ran the kernels (`lattice.apply.kernel`)
+`apply_plan` counts its untiled applies (`lattice.apply.untiled`), those
+whose splat and slice both ran the kernels (`lattice.apply.kernel`) and
+those that took the shifted bf16 slice (`lattice.slice.shifted`)
 (`utils.profiling`).
 """
 from __future__ import annotations
@@ -670,7 +671,7 @@ def _slice(plan: PermutohedralPlan, vals: torch.Tensor) -> torch.Tensor:
 
 
 def apply_plan(plan: PermutohedralPlan, src: torch.Tensor, reverse: bool = False,
-               shift_rows: bool = False) -> torch.Tensor:
+               shift_rows: bool = False, shift_out: bool = False) -> torch.Tensor:
     """Filter (n, L) values through a prebuilt plan. Linear in `src`;
     `reverse=True` traverses the blur axes in reverse (the transpose).
 
@@ -679,14 +680,27 @@ def apply_plan(plan: PermutohedralPlan, src: torch.Tensor, reverse: bool = False
     each vertex's row to a minimum of 0 (`_blur`), which adds a constant
     to each output row (the slice sums the vertices' shifts with the
     pixel's weights) and keeps the table's values, and so what rounding
-    them to a narrow dtype loses, small."""
+    them to a narrow dtype loses, small.
+
+    `shift_out=True`, for such a caller that needs no gradient, returns
+    each output row shifted to a minimum of 0 and rounded to bfloat16:
+    untiled, the shifted slice (`ops/cuda/lattice.slice_untiled_shifted`,
+    one kernel on the card, counted as `lattice.slice.shifted`); tiled,
+    the slice followed by `shift_rows_bf16`. Both give the bits of the
+    slice followed by `shift_rows_bf16`."""
     launched = _kernels.lattice_splat.launches, _kernels.lattice_slice.launches
     with span("lattice.splat"):
         vals = _splat(plan, src)
     with span("lattice.blur"):
         vals = _blur(plan, vals, reverse, shift_rows)
     with span("lattice.slice"):
-        out = _slice(plan, vals)
+        if not shift_out:
+            out = _slice(plan, vals)
+        elif plan.tile_A is None:
+            out = _kernels.slice_untiled_shifted(plan, vals)
+            count("lattice.slice.shifted", 1)
+        else:
+            out = _kernels.shift_rows_bf16(_slice(plan, vals))
     if plan.tile_A is None:
         count("lattice.apply.untiled", 1)
         if (_kernels.lattice_splat.launches > launched[0]

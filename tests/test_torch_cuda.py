@@ -1,6 +1,6 @@
 """The PyTorch port's CUDA kernels (K1, K1w, K1x and K1xx, the
-lattice apply's splat and slice, and the stereo cost volume) against their
-plain versions, on a card.
+lattice apply's splat, slice and shifted slice, and the stereo cost volume)
+against their plain versions, on a card.
 
 These tests import neither JAX nor the JAX package, so a GPU machine without
 JAX runs them, skipping the JAX-specific conftest:
@@ -305,7 +305,7 @@ def _lattice_plan(case: str, dtype=torch.float32, n: int = 3000, d: int = 5):
     rs = np.random.RandomState(20)
     ref = (rs.randn(n, d) * 1.5).astype(np.float32)
     ref[: n // 2] = 0.1
-    cap = 128 if case == "overflow" else 8192
+    cap = 128 if case == "overflow" else 8192 if n <= 3000 else 65536
     plan = P.build_plan(torch.from_numpy(ref).to("cuda", dtype), max_vertices=cap)
     assert (int(plan.num_valid) > cap) == (case == "overflow")
     if case == "hot":
@@ -504,6 +504,123 @@ def test_untiled_apply_does_not_depend_on_how_the_plan_numbers_its_slots(dtype):
     g = torch.Generator(device="cuda").manual_seed(8)
     src = torch.randn(3000, 128, generator=g, device="cuda").to(dtype)
     assert torch.equal(P.apply_plan(a, src), P.apply_plan(b, src))
+
+
+# the shifted slice: a team of 2 lanes, fullres128's row (one pass, in
+# registers), wide320's (two passes, staged in shared memory), one value a
+# lane (100: 4 passes; 300: 10), the widest row in 48 KB of shared memory
+# a block (1536: 6 passes of 8 values), rows past it that opt into more
+# (1600 at 8 values a lane, 1602 at one) and the widest that fit 227 KB
+# (7168 at 8, 7263 at one); fullres128's and wide320's rows again over many
+# blocks, their last one part full
+SHIFT_CASES = [(L, 3000) for L in (16, 128, 320, 100, 300, 1536, 1600, 1602, 7168, 7263)] + [
+    (128, 110587), (320, 110587)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,n", SHIFT_CASES)
+@pytest.mark.parametrize("case", ["hot", "overflow"])
+def test_shifted_slice_kernel_is_bit_equal_to_plain(case, L, n):
+    """The shifted slice kernel is bit for bit its plain version on the
+    card (the plain slice, its rows' minima subtracted in f32, rounded to
+    bf16), row C included; one launch, on the slice's counter. The f32
+    slice stays bit for bit the plain slice."""
+    _needs_card()
+    plan = _lattice_plan(case, n=n)
+    g = torch.Generator(device="cuda").manual_seed(L + n)
+    vals = (torch.randn(plan.capacity + 1, L, generator=g, device="cuda") * 50).bfloat16()
+    scale = LK.slice_scale(plan.d)
+    before, shifted = LK.launch_counts(), LK.lattice_slice.shifted_launches
+    got = LK.lattice_slice(vals, plan.slot, plan.bary, scale, shifted=True)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"splat": 0, "slice": 1}
+    assert LK.lattice_slice.shifted_launches == shifted + 1
+    S = LK.slice_untiled_reference(plan, vals)
+    assert got.dtype == torch.bfloat16 and got.shape == S.shape
+    assert torch.equal(got, LK.shift_rows_bf16(S))
+    assert torch.equal(LK.lattice_slice(vals, plan.slot, plan.bary, scale), S)
+    assert not got.amin(1).any()
+
+
+@pytest.mark.cuda
+def test_shifted_slice_refuses_what_it_does_not_take():
+    """Values other than bfloat16, weights other than float32, a gradient
+    and rows whose sums do not fit 227 KB of shared memory a block (7176 at
+    8 values a lane, 7265 at one) raise; nothing is launched."""
+    _needs_card()
+    plan = _lattice_plan("hot")
+    before, shifted = LK.launch_counts(), LK.lattice_slice.shifted_launches
+    for L in (7176, 7265):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            LK.lattice_slice(torch.zeros(plan.capacity + 1, L, dtype=torch.bfloat16,
+                                         device="cuda"), plan.slot, plan.bary, 1.0, shifted=True)
+    for dtype in (torch.float32, torch.float64):
+        with pytest.raises(ValueError, match="dtype"):
+            LK.lattice_slice(torch.zeros(plan.capacity + 1, 8, dtype=dtype, device="cuda"),
+                             plan.slot, plan.bary, 1.0, shifted=True)
+    with pytest.raises(ValueError, match="dtype"):
+        LK.lattice_slice(torch.zeros(plan.capacity + 1, 8, dtype=torch.bfloat16, device="cuda"),
+                         plan.slot, plan.bary.double(), 1.0, shifted=True)
+    with pytest.raises(ValueError, match="gradient"):
+        LK.slice_untiled_shifted(plan, torch.zeros(plan.capacity + 1, 8, device="cuda",
+                                                   requires_grad=True))
+    assert _launched(before) == {"splat": 0, "slice": 0}
+    assert LK.lattice_slice.shifted_launches == shifted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [16, 128, 320])
+def test_shifted_apply_counts_each_launch_once(L):
+    """`apply_plan(shift_out=True)` on the card: one splat and one shifted
+    slice launch, counted as an untiled apply run by the kernels and as one
+    shifted slice; the bits of the apply followed by the shift and cast."""
+    _needs_card()
+    plan = _lattice_plan("hot")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    src = torch.rand(plan.bary.shape[0], L, generator=g, device="cuda").to(torch.bfloat16)
+    before, shifted = LK.launch_counts(), LK.lattice_slice.shifted_launches
+    profiling.reset_counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = P.apply_plan(plan, src, shift_rows=True, shift_out=True)
+        torch.cuda.synchronize()
+    assert _launched(before) == {"splat": 1, "slice": 1}
+    assert LK.lattice_slice.shifted_launches == shifted + 1
+    assert profiling.counter_totals() == {"lattice.apply.untiled": 1, "lattice.apply.kernel": 1,
+                                          "lattice.slice.shifted": 1}
+    profiling.reset_counters()
+    assert torch.equal(got, LK.shift_rows_bf16(P.apply_plan(plan, src, shift_rows=True)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [24, 100, 320])
+def test_bf16_pipeline_on_the_card_gives_the_disparities_of_the_separate_shift(monkeypatch, L):
+    """The fused bf16 pipeline on a 64×96 pair on the card, through the
+    shifted slice kernel and through the f32 slice kernel followed by the
+    shift and cast it replaces: the same bits."""
+    _needs_card()
+    from depth_estimation_torch.data.synthetic import make_stereo_pair
+    from depth_estimation_torch.models import pipeline as TP
+
+    left, right, _ = make_stereo_pair(np.random.RandomState(1), 64, 96, num_layers=4,
+                                      max_disp=20)
+    cfg = TP.CRFStereoConfig(num_disp=L, niters=3, compute_dtype="bf16", fused_update=True,
+                             max_vertices=16384)
+    before, shifted = LK.launch_counts(), LK.lattice_slice.shifted_launches
+    out = TP.crf_stereo_infer(left, right, cfg, device="cuda")
+    assert LK.lattice_slice.shifted_launches == shifted + cfg.niters
+
+    def separate(plan, x, reverse=False, shift_rows=False, shift_out=False):
+        S = P.apply_plan(plan, x, reverse=reverse, shift_rows=shift_rows)
+        return LK.shift_rows_bf16(S) if shift_out else S
+
+    with monkeypatch.context() as m:
+        m.setattr(TP, "apply_plan", separate)
+        plain = TP.crf_stereo_infer(left, right, cfg, device="cuda")
+    torch.cuda.synchronize()
+    assert _launched(before) == {"splat": 2 * cfg.niters, "slice": 2 * cfg.niters}
+    assert out["plans"][0].tile_A is None
+    for key in ("disparity", "probabilities"):
+        assert torch.equal(out[key], plain[key]), key
 
 
 # the stereo cost volume: (h, w, c, labels, window), off every tile size
