@@ -25,7 +25,7 @@ import torch
 from . import counts, trace as T
 
 __all__ = ["BENCH", "ROOT", "Cell", "Reading", "load_spec", "make_cell", "cell_of", "entry_module",
-           "run_units", "run_cell", "forbidden_modules"]
+           "run_units", "run_cell", "forbidden_modules", "end_to_end_value"]
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -48,14 +48,17 @@ class Cell:
 class Reading:
     """What a per-layer metric reads: the cell, the entry after its run,
     the traced slice's trace (None where nothing was traced), the units of
-    that slice and of the sync-counting slice after it (as many), and the
-    latter's count of syncs."""
+    that slice and of the sync-counting slice after it (as many), the
+    latter's count of syncs, and the traced slice's named ranges
+    (`trace.spans_from_profiler`: name -> (count, device seconds); None
+    where nothing was traced)."""
 
     cell: Cell
     entry: object
     trace: T.Trace | None
     traced_units: int
     syncs: int | None
+    spans: dict | None = None
 
 
 def load_spec() -> dict:
@@ -105,6 +108,14 @@ def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
+def end_to_end_value(values: dict, name: str) -> float:
+    """An end-to-end metric's number among what a run measured: the one of
+    its name, or else the one of its name less its last `.<part>`, so that
+    `frames_per_s.narrow` is a cell's `frames_per_s` held to a bound of its
+    own."""
+    return values[name] if name in values else values[name.rsplit(".", 1)[0]]
+
+
 def _log(*a) -> None:
     print(*a, file=sys.stderr, flush=True)
 
@@ -134,7 +145,8 @@ def run_units(entry, first: int, count: int, seconds: float | None = None):
 
 
 def _traced(entry, first: int, count: int, device):
-    """The trace of `count` units under `torch.profiler`, and their failures."""
+    """The trace of `count` units under `torch.profiler`, its named ranges,
+    and the units' failures."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
@@ -143,7 +155,7 @@ def _traced(entry, first: int, count: int, device):
         failed = run_units(entry, first, count)[-1]
         _sync(device)
         window_s = time.perf_counter() - t0
-    return T.from_profiler(prof, window_s), failed
+    return T.from_profiler(prof, window_s), T.spans_from_profiler(prof), failed
 
 
 def _count_syncs(entry, first: int, count: int, device):
@@ -202,11 +214,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device, t0: fl
     attempted = units * entry.frames_per_unit
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
 
-    trace = syncs = None
+    trace = syncs = spans = None
     traced_units = cell.traffic["trace_units"]
     if traced:
         _log("card:", _power_line(), "| peaks:", json.dumps(counts.PEAK))
-        trace, f1 = _traced(entry, entry.next_unit, traced_units, device)
+        trace, spans, f1 = _traced(entry, entry.next_unit, traced_units, device)
+        _log("spans (count, device s) over", traced_units, "units:",
+             json.dumps({k: v for k, v in spans.items() if v[1]}))
         entry.next_unit += traced_units
         syncs, f2 = _count_syncs(entry, entry.next_unit, traced_units, device)
         entry.next_unit += traced_units
@@ -215,7 +229,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device, t0: fl
     failed += entry.failed()
 
     if traced:
-        reading = Reading(cell, entry, trace, traced_units, syncs)
+        reading = Reading(cell, entry, trace, traced_units, syncs, spans)
         metrics = {}
         for m in cell.per_layer:
             value = metric_reader(m["name"])(reading)
@@ -223,7 +237,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device, t0: fl
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
         values = {"setup_s": setup_s, **entry.end_to_end(t_end - t_start, lat, units)}
-        metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
+        metrics = {m["name"]: {"value": end_to_end_value(values, m["name"]), "unit": m["unit"]}
                    for m in cell.end_to_end}
     _log(f"window: {units} units in {t_end - t_start:.3f} s after {setup_s:.3f} s of set-up; "
          f"{failed} of {attempted} failed; {entry.summary()}")

@@ -1,0 +1,5 @@
+"""`host_syncs_per_frame` in the cells whose rate is `frames_per_s.narrow`: its
+reader, under a name that moves that rate."""
+from benchmark.harness import metric_reader
+
+read = metric_reader("host_syncs_per_frame")

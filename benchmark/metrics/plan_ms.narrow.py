@@ -1,0 +1,5 @@
+"""`plan_ms.infer` in the cells whose rate is `frames_per_s.narrow`: its
+reader, under a name that moves that rate."""
+from benchmark.harness import metric_reader
+
+read = metric_reader("plan_ms.infer")

@@ -15,6 +15,10 @@ from benchmark.harness import cell_of, load_spec, make_cell
 SMALL = {
     "fullres128.stream": ({"height": 96, "width": 128, "num_disp": 24},
                           {"max_disp": 16, "pool": 4, "check_frames": 2}),
+    "wide320.stream": ({"height": 96, "width": 128, "num_disp": 40},
+                       {"max_disp": 38, "pool": 4, "check_frames": 2}),
+    "middlebury64.stream": ({"height": 96, "width": 128, "num_disp": 16},
+                            {"max_disp": 14, "pool": 4, "check_frames": 2}),
     "tsukuba16.serve": ({"height": 64, "width": 96},
                         {"pool": 16, "batch": 4, "max_disp": 8, "num_layers": 3,
                          "check_frames": 4, "trace_units": 2}),

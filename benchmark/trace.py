@@ -1,14 +1,16 @@
 """The reduction of a `torch.profiler` trace to what the per-layer metrics
 and the result's `breakdown` read: the device's busy time (the union of
 its kernel and copy intervals), its kernels by name, and its idle gaps by
-what the host was doing meanwhile."""
+what the host was doing meanwhile; and, apart, the device time of each
+named range on the host's timeline (the program's spans)."""
 from __future__ import annotations
 
 import heapq
 from collections import defaultdict
 from typing import NamedTuple
 
-__all__ = ["Trace", "reduce_events", "from_profiler", "idle_pct", "breakdown"]
+__all__ = ["Trace", "reduce_events", "from_profiler", "spans_from_profiler", "idle_pct",
+           "breakdown"]
 
 _COPIES = ("Memcpy", "Memset")
 _NAME_CHARS = 120
@@ -77,6 +79,22 @@ def from_profiler(prof, window_s: float) -> Trace | None:
         item = (e.name, float(e.time_range.start), float(e.time_range.end))
         (dev if e.device_type == DeviceType.CUDA else host).append(item)
     return reduce_events(dev, host, window_s)
+
+
+def spans_from_profiler(prof) -> dict:
+    """{name: (count, device seconds)} of the named ranges on the host's
+    timeline of a finished `torch.profiler.profile`: each host-side event
+    whose name is not one of PyTorch's operators (those hold a `::`), its
+    `device_time_total` (the kernels and copies the profiler correlates
+    with launches inside it, nested ranges' included) summed by name."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and "::" not in e.name:
+            n, s = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, s + e.device_time_total * 1e-6)
+    return out
 
 
 def idle_pct(trace: Trace | None) -> float | None:
